@@ -17,6 +17,15 @@ Phases (any failure exits non-zero):
      view. Then each kernel is held against its plain version and timed on
      the bench view's own inputs.
   4. the port's render CLI on a small COLMAP scene that the port writes.
+  5. the training step: at 256x192 with 20k splats, the whole step's
+     gradients on route "cuda" against route "plain"; then the bench scene
+     at 1920x1080 trains for TRAIN_STEPS steps of ``make_train_step`` under
+     the same budget (a ``train_step:`` line each: loss finite, 0 dropped
+     pairs, K1-K4 launched once and K5 twice per step, every parameter
+     group moved). Then K3, K4 and K5 are held against their plain versions
+     and timed on the bench step's own inputs, beside one-call library
+     equivalents; ``train_stages_ms`` splits the step and a profile line
+     gives its device idle share.
 
 The card's name and power limit come two lines before the last, the
 kernels' JSON record (``max_abs_err`` is the largest |kernel - plain| over
@@ -52,6 +61,22 @@ F32_ISSUE = F32_FLOPS / 2  # f32 instructions per second, FMA or not
 # 8 instructions)
 K2_OPS_TO_KILL = {16: 16, 32: 20}
 K2_FLOPS_KEPT, K2_INSTR_KEPT = 12, 8
+# K3 evaluates exactly the (pair, pixel) set K2 did, with K2's chain up to
+# the kill decision; an evaluation that passes it adds the T test and
+# w = alpha T (2), E = G . rgbz (7), prefix (2), suffix, 1 - alpha, E T,
+# the divide and d_alpha (5), the clamp test and d_power (2), five moment
+# products, four G w products and the T update (10), and one add into each
+# of the ten pixel sums (10): 38 f32 operations
+K3_FLOPS_KEPT = 38
+# tolerances of the kernels against their plain versions, each a share of
+# the largest |plain| of that output column: K3's per-pixel terms are
+# rounded like the plain version's, its sums over up to 1024 pixels run in
+# another order and the position rows cancel; K4 sums a few rows in another
+# order; K5 rounds every product and sum in the plain version's order
+K3_TOL, K4_TOL, K5_TOL = 1e-4, 1e-5, 1e-6
+STEP_GRAD_TOL = 1e-4  # route "cuda" against "plain", share of each group's max
+TRAIN_STEPS = 10
+RENDER_KERNELS = ("expand_pairs", "composite_fwd")  # the render path's kernels
 
 
 def fail(msg: str) -> None:
@@ -80,10 +105,10 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_render(render, wall_ms: float, reps: int = 5) -> None:
-    """Print the device's busy time per render from torch.profiler, its idle
-    share of ``wall_ms`` (the render's time without the profiler), and the
-    device time of the heaviest kernels."""
+def profile_render(render, wall_ms: float, reps: int = 5, unit: str = "render") -> None:
+    """Print the device's busy time per call of ``render`` from
+    torch.profiler, its idle share of ``wall_ms`` (the call's time without
+    the profiler), and the device time of the heaviest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -105,9 +130,9 @@ def profile_render(render, wall_ms: float, reps: int = 5) -> None:
         return
     rows.sort(key=lambda r: -r[1])
     print("profile: " + json.dumps({
-        "wall_ms_per_render": wall_ms, "device_busy_ms_per_render": busy_ms,
+        f"wall_ms_per_{unit}": wall_ms, f"device_busy_ms_per_{unit}": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_kernels_per_render": sum(r[2] for r in rows),
+        f"device_kernels_per_{unit}": sum(r[2] for r in rows),
         "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in rows[:12]],
     }), flush=True)
 
@@ -279,7 +304,7 @@ def phase3():
         out, stats = render_scene(scene, cam, w, h, bg, tiling)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launched = {k: _build.launches[k] - before[k] for k in before}
+        launched = {k: _build.launches[k] - before[k] for k in RENDER_KERNELS}
         row = {"view": i, "ms": ms}
         row.update({k: int(v) for k, v in stats.items()
                     if k in ("num_pairs", "num_binned_pairs", "num_dropped_pairs")})
@@ -298,7 +323,7 @@ def phase3():
             fail(f"view {i}: {row['num_dropped_pairs']} pairs dropped")
         if any(v < 1 for v in launched.values()):
             fail(f"view {i}: a kernel was not launched: {launched}")
-    launches = dict(_build.launches)
+    launches = {k: _build.launches[k] for k in RENDER_KERNELS}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     dev_pairs = per_view[0]["num_pairs"]
     rel = abs(dev_pairs - BENCH_PAIRS) / BENCH_PAIRS
@@ -355,7 +380,7 @@ def phase3():
     print("stages_ms: " + json.dumps(stages), flush=True)
     profile_render(lambda: render_scene(scene, cams[0], w, h, bg, tiling),
                    stages["render_scene"])
-    return [
+    return scene, budget, [
         {"name": "expand_pairs", "route": "cuda",
          "source": f"{PKG}/csrc/expand_pairs.cu",
          "replaces": "gaussian_splatting_lightning_tpu/ops/binning.py:174",
@@ -420,6 +445,284 @@ def phase4():
         fail("CLI render differs from the in-process render")
 
 
+def col_err(kernel, plain) -> float:
+    """Largest |kernel - plain| of any column over that column's largest
+    |plain|."""
+    scale = plain.abs().amax(dim=0).clamp_min(1e-30)
+    return float(((kernel - plain).abs().amax(dim=0) / scale).max())
+
+
+def check_step_routes():
+    """The whole step's gradients at 256x192 with 20k splats: route "cuda"
+    (every kernel) against route "plain" (every plain version)."""
+    import numpy as np
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.training import trainer
+
+    w, h = 256, 192
+    scene = interop.synthetic_scene(20_000, 20_000, aniso=True, scale=0.01)
+    cam = interop.camera(w, h)
+    target = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(3, h, w)).astype(np.float32)).cuda()
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    grads = {}
+    for route in ("cuda", "plain"):
+        cfg = trainer.TrainConfig(rasterizer=route,
+                                  tiling=TilingConfig(max_pairs=1 << 18, block=32))
+        g, screen, _, _, logs, _ = trainer.step_gradients(cfg, scene, cam, w, h, target, bg)
+        grads[route] = {k: getattr(g, k) for k in PARAM_NAMES}
+        grads[route]["means2d_ndc_offset"] = screen
+        grads[route]["loss"] = logs["loss"].reshape(1)
+    errs = {}
+    for k, b in grads["plain"].items():
+        a = grads["cuda"][k]
+        scale = float(b.abs().max())
+        errs[k] = float((a - b).abs().max()) / scale if scale > 0 else float(a.abs().max())
+    print("step_routes: " + json.dumps({"tolerance": STEP_GRAD_TOL, "rel_err": errs}),
+          flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= STEP_GRAD_TOL}
+    if bad:
+        fail(f"step gradients on route cuda differ from route plain: {bad}")
+
+
+def phase5(scene, budget):
+    """The training step on the bench scene at 1080p, then K3, K4 and K5
+    against their plain versions and timed on that step's inputs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
+        PARAM_NAMES,
+        GaussianParams,
+    )
+    from gaussian_splatting_lightning_tpu_torch.ops import _build, binning, rasterize, ssim
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.training import trainer
+    from gaussian_splatting_lightning_tpu_torch.training.densify import accumulate_stats
+    from gaussian_splatting_lightning_tpu_torch.training.loss import photometric_loss
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
+        adam_update,
+        init_adam,
+        make_lr_schedules,
+    )
+
+    check_step_routes()
+
+    w, h, blk = 1920, 1080, 32
+    cam = interop.camera(w, h)
+    target = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(3, h, w)).astype(np.float32)).cuda()
+    bg = torch.zeros(3, device="cuda")
+    tiling = TilingConfig(max_pairs=budget, block=blk)
+    cfg = trainer.TrainConfig(tiling=tiling)
+    step_fn = trainer.make_train_step(cfg, 1.0, w, h)
+    start = {k: getattr(scene.params, k).clone() for k in PARAM_NAMES}
+    state = {"scene": scene, "adam": init_adam(scene.params), "step": 0}
+
+    def one_step():
+        state["scene"], state["adam"], logs = step_fn(
+            state["scene"], state["adam"], state["step"], cam, target, bg)
+        state["step"] += 1
+        return logs
+
+    one_step()  # warm-up: library loads, allocator
+    torch.cuda.synchronize()
+    expected = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
+                "segment_sum": 1, "blur": 2}
+    _build.reset_launch_counts()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        before = dict(_build.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = one_step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        step_ms.append(ms)
+        launched = {k: _build.launches[k] - before[k] for k in before}
+        row = {"step": state["step"] - 1, "ms": ms, "loss": float(logs["loss"]),
+               "psnr": float(logs["psnr"]), "num_pairs": int(logs["num_pairs"]),
+               "dropped": int(logs["num_dropped_pairs"]), "launches": launched}
+        print("train_step: " + json.dumps(row), flush=True)
+        if not math.isfinite(row["loss"]):
+            fail(f"train step {row['step']}: loss {row['loss']}")
+        if row["dropped"] != 0:
+            fail(f"train step {row['step']}: {row['dropped']} pairs dropped")
+        if launched != expected:
+            fail(f"train step {row['step']}: launches {launched}, expected {expected}")
+    launches = dict(_build.launches)
+    print(f"train path launches: {json.dumps(launches)}", flush=True)
+    scene = state["scene"]
+    for k in PARAM_NAMES:
+        moved = float((getattr(scene.params, k) - start[k]).abs().max())
+        if not moved > 0:
+            fail(f"parameter group {k} did not move in {TRAIN_STEPS + 1} steps")
+    if not bool(torch.isfinite(scene.grad_accum).all()) or float(scene.grad_accum.max()) <= 0:
+        fail("densification statistics did not accumulate")
+    del start
+
+    # the bench step's own inputs to K3, K4 and K5
+    prep = _prep(scene, cam, w, h)
+    gx, gy = binning.grid_shape(w, h, blk, blk)
+    m = -(-budget // binning.CHUNK) * binning.CHUNK
+    bins = binning.build_sorted_bins(prep, gx, gy, m, block=blk)
+    gfeat = rasterize.feature_table(prep, w, h, blk)
+    out = rasterize.composite_fwd(gfeat, bins.gauss_s, bins.tile_start, bins.tile_count,
+                                  bg, gx, blk)
+    out_r = out.clone().requires_grad_()
+    img = rasterize._assemble_cf(out_r, gx, gy, w, h, blk)[0:3]
+    stack, c1, c2 = ssim.ssim_stack(img.detach()[None], target[None])
+    blurred = ssim.blur_valid(stack).requires_grad_()
+    smap = ssim.ssim_from_blurred(blurred, c1, c2, 1)
+    (ct_blur,) = torch.autograd.grad(smap.mean(), blurred)
+    ct_pad = F.pad(ct_blur, (ssim.HALO,) * 4).contiguous()  # K5's VJP input
+    loss, _ = photometric_loss(img, target, cfg.w_ssim)
+    (grad_out,) = torch.autograd.grad(loss, out_r)
+    grad_out = grad_out.contiguous()
+    # the loss leaves the depth channel's cotangent at zero; a seeded one at
+    # the colour cotangent's scale holds K3's 1/z column and depth term too
+    depth_ct = np.random.default_rng(1).normal(size=tuple(grad_out[:, 3].shape))
+    grad_out[:, 3] = (torch.from_numpy(depth_ct.astype(np.float32)).cuda()
+                      * grad_out[:, :3].abs().max())
+
+    k3_args = (gfeat, bins.gauss_s, bins.slot_s, bins.tile_start, bins.tile_count,
+               out, grad_out, gx, blk, m)
+    dk = rasterize.composite_bwd(*k3_args)
+    dp = rasterize.composite_bwd_plain(*k3_args)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(dk).all()):
+        fail("K3 at 1080p: non-finite pair gradients")
+    k3_rel, k3_abs = col_err(dk, dp), float((dk - dp).abs().max())
+    sk = rasterize.segment_sum(dk, bins.offsets, bins.ntiles, bins.order)
+    sp = rasterize.segment_sum_plain(dk, bins.offsets, bins.ntiles, bins.order)
+    torch.cuda.synchronize()
+    ng = rasterize.NGRAD
+    k4_rel, k4_abs = col_err(sk[:, :ng], sp[:, :ng]), float((sk - sp).abs().max())
+    k5_abs, k5_rel = 0.0, 0.0
+    for x in (stack, ct_pad):
+        yk, yp = ssim.blur_valid(x), ssim.blur_valid_plain(x)
+        torch.cuda.synchronize()
+        diff = float((yk - yp).abs().max())
+        k5_abs = max(k5_abs, diff)
+        k5_rel = max(k5_rel, diff / float(yp.abs().max()))
+    checks = {"K3": [k3_rel, K3_TOL, k3_abs], "K4": [k4_rel, K4_TOL, k4_abs],
+              "K5": [k5_rel, K5_TOL, k5_abs]}
+    print("phase5_kernels: " + json.dumps(
+        {"[rel_err, tolerance, max_abs_err]": checks}), flush=True)
+    for name, (rel, tol, _) in checks.items():
+        if not rel <= tol:
+            fail(f"{name} at 1080p: error {rel} (share of the column maximum) > {tol}")
+
+    # times, bounds and one-call library equivalents
+    k3_ms = cuda_time_ms(lambda: rasterize.composite_bwd(*k3_args), 10)
+    k3_plain_ms = cuda_time_ms(lambda: rasterize.composite_bwd_plain(*k3_args), 1)
+    _, evals, kept = rasterize.composite_fwd_plain(
+        gfeat, bins.gauss_s, bins.tile_start, bins.tile_count, bg, gx, blk,
+        return_work=True)
+    pix, n, n_tiles = blk * blk, prep.depth.shape[0], gx * gy
+    evals, kept = int(evals.sum()) * pix, int(kept.sum())
+    binned = int(bins.tile_count.sum())
+    k3_flops = evals * K2_OPS_TO_KILL[blk] + kept * K3_FLOPS_KEPT
+    k3_bytes = n * 64 + binned * 8 + n_tiles * (8 + 2 * 4 * pix * 4) + m * ng * 4
+    k3_bound = {"bytes": k3_bytes / HBM_BYTES_PER_S, "operations": k3_flops / F32_FLOPS}
+    k3_by = max(k3_bound, key=k3_bound.get)
+
+    seg_args = (dk, bins.offsets, bins.ntiles, bins.order)
+    k4_ms = cuda_time_ms(lambda: rasterize.segment_sum(*seg_args), 20)
+    k4_plain_ms = cuda_time_ms(lambda: rasterize.segment_sum_plain(*seg_args), 5)
+    lengths = torch.clamp(torch.clamp(bins.offsets + bins.ntiles[bins.order.long()], max=m)
+                          - bins.offsets, min=0).long()
+    rows = int(lengths.sum())
+    data = dk[:rows]
+    seg_lib = torch.segment_reduce(data, "sum", lengths=lengths)
+    k4_lib_ms = cuda_time_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths), 20)
+    k4_lib_diff = float((seg_lib - sk[bins.order.long(), :ng]).abs().max())
+    k4_bytes = rows * ng * 4 + n * 3 * 4 + n * rasterize.NFEAT * 4
+
+    k5_ms = cuda_time_ms(lambda: ssim.blur_valid(stack), 20)
+    k5_bwd_ms = cuda_time_ms(lambda: ssim.blur_valid(ct_pad), 20)
+    k5_plain_ms = cuda_time_ms(lambda: ssim.blur_valid_plain(stack), 3)
+    c = stack.shape[0]
+    taps = torch.tensor(ssim.TAPS, device="cuda")
+    weight = torch.outer(taps, taps).expand(c, 1, ssim.WINDOW, ssim.WINDOW).contiguous()
+    conv = F.conv2d(stack[None], weight, groups=c)[0]
+    k5_lib_ms = cuda_time_ms(lambda: F.conv2d(stack[None], weight, groups=c), 10)
+    k5_lib_diff = float((conv - ssim.blur_valid(stack)).abs().max())
+    k5_bytes = (stack.numel() + c * (stack.shape[1] - ssim.HALO)
+                * (stack.shape[2] - ssim.HALO)) * 4
+    print(f"K3 work: {binned} binned pairs, {evals} pair-pixel evaluations, {kept} "
+          f"past the kill, {k3_flops} flops, {k3_bytes} bytes; K4: {rows} rows "
+          f"summed, segment_reduce vs K4 max diff {k4_lib_diff:.3g}; K5: stack "
+          f"{tuple(stack.shape)}, conv2d vs K5 max diff {k5_lib_diff:.3g}, "
+          f"VJP launch {k5_bwd_ms:.4f} ms", flush=True)
+
+    # where one step's time goes: each stage run alone (CUDA events)
+    leaves = {k: getattr(scene.params, k).detach().requires_grad_() for k in PARAM_NAMES}
+    offset = torch.zeros(scene.capacity, 2, device="cuda", requires_grad=True)
+    live = dataclasses.replace(scene, params=GaussianParams(**leaves))
+
+    def forward():
+        return trainer.render_scene(live, cam, w, h, bg, tiling, means2d_ndc_offset=offset)
+
+    fwd_out, _ = forward()
+    loss, _ = photometric_loss(fwd_out.image, target, cfg.w_ssim)
+    inputs = list(leaves.values()) + [offset]
+    grads = torch.autograd.grad(loss, inputs, retain_graph=True)
+    pgrads = GaussianParams(**dict(zip(PARAM_NAMES, grads)))
+    schedules = make_lr_schedules(cfg.optimizer, 1.0)
+    radii = fwd_out.radii.detach()
+    stages = {
+        "train_step": cuda_time_ms(one_step, 3),
+        "forward (render_scene, autograd on)": cuda_time_ms(forward, 5),
+        "loss (photometric_loss: L1 + SSIM with K5)": cuda_time_ms(
+            lambda: photometric_loss(fwd_out.image, target, cfg.w_ssim), 5),
+        "backward (autograd.grad)": cuda_time_ms(
+            lambda: torch.autograd.grad(loss, inputs, retain_graph=True), 3),
+        "  of which K3 composite_bwd": k3_ms,
+        "  of which K4 segment_sum": k4_ms,
+        "  of which K5 blur (VJP)": k5_bwd_ms,
+        "  K5 blur (forward, in the loss)": k5_ms,
+        "adam_update": cuda_time_ms(lambda: adam_update(
+            scene.params, pgrads, state["adam"], schedules, cfg.optimizer, 5), 5),
+        "accumulate_stats": cuda_time_ms(
+            lambda: accumulate_stats(scene, radii, grads[-1]), 10),
+    }
+    wall = sorted(step_ms)[len(step_ms) // 2]
+    print("train_stages_ms: " + json.dumps(
+        dict(stages, step_wall_ms_median=wall, step_wall_ms=step_ms)), flush=True)
+    del fwd_out, loss, grads, pgrads, leaves, live
+    profile_render(one_step, wall, reps=3, unit="step")
+    return [
+        {"name": "composite_bwd", "route": "cuda",
+         "source": f"{PKG}/csrc/composite_bwd.cu",
+         "replaces": "gaussian_splatting_lightning_tpu/ops/rasterize_pallas.py:228",
+         "launches": launches["composite_bwd"], "max_abs_err": k3_abs,
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[k3_by] * 1e3, "bound_by": k3_by, "library_ms": None},
+        {"name": "segment_sum", "route": "cuda",
+         "source": f"{PKG}/csrc/segment_sum.cu",
+         "replaces": "gaussian_splatting_lightning_tpu/ops/rasterize_pallas.py:597",
+         "launches": launches["segment_sum"], "max_abs_err": k4_abs,
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": k4_lib_ms},
+        {"name": "blur", "route": "cuda", "source": f"{PKG}/csrc/blur.cu",
+         "replaces": "gaussian_splatting_lightning_tpu/ops/ssim.py:67",
+         "launches": launches["blur"], "max_abs_err": k5_abs,
+         "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": k5_lib_ms},
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -440,8 +743,9 @@ def main() -> int:
     t0 = time.perf_counter()
     probe()
     phase2()
-    kernels = phase3()
+    scene, budget, kernels = phase3()
     phase4()
+    kernels += phase5(scene, budget)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -4,13 +4,16 @@ The JAX package beside this one stays the reference; this package keeps its
 module paths and public names so each function's counterpart is easy to find.
 
 - ``core``      camera, SH and splatting geometry on tensors
-- ``ops``       preprocess, budget, binning (CUDA kernel K1) and the forward
-                compositor (CUDA kernel K2); ``ops/_build.py`` builds the
-                kernels from ``csrc/`` with ``nvcc`` at first use
+- ``ops``       preprocess, budget, binning (CUDA kernel K1), the compositor
+                (K2 forward; K3 and K4 backward) and SSIM (K5);
+                ``ops/_build.py`` builds the kernels from ``csrc/`` with
+                ``nvcc`` at first use
 - ``models``    the padded-capacity ``GaussianScene`` and PLY interchange
 - ``data``      COLMAP / Blender parsing and view datasets (numpy)
-- ``training``  ``render_scene`` and ``resolve_rasterizer``
-- ``interop``   carries weights and cameras over from numpy / the JAX fields
+- ``training``  the training step (render, loss, backward, Adam, densification
+                statistics), ``render_scene`` and ``resolve_rasterizer``
+- ``interop``   carries weights, Adam state and cameras over from numpy / the
+                JAX fields
 
 Entry points take ``device`` ("cuda" by default) and raise when CUDA is absent;
 they run on the CPU only when asked (``device="cpu"``), and then every kernel

@@ -1,8 +1,9 @@
-"""Carry weights and cameras across from numpy, and the bench's fixtures.
+"""Carry weights, optimizer state and cameras across from numpy, and the
+bench's fixtures.
 
-``scene_from_numpy`` / ``camera_from_numpy`` take the fields of the JAX
-package's ``GaussianParams`` and ``Camera`` as numpy arrays and return the
-port's objects. ``synthetic_scene`` and ``camera`` reproduce
+``scene_from_numpy`` / ``adam_from_numpy`` / ``camera_from_numpy`` take the
+fields of the JAX package's ``GaussianParams``, ``AdamState`` and ``Camera``
+as numpy arrays and return the port's objects. ``synthetic_scene`` and ``camera`` reproduce
 ``__graft_entry__._synthetic_scene`` and ``_camera`` number for number (the
 same ``numpy.random.default_rng`` draws in the same order); unlike
 ``from_points`` they skip the KNN scale step, whose result those fixtures
@@ -12,18 +13,23 @@ overwrite.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from gaussian_splatting_lightning_tpu_torch.core.camera import (
     Camera,
     camera_from_matrices,
     make_camera,
 )
+from gaussian_splatting_lightning_tpu_torch.device import resolve_device
 from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
+    PARAM_NAMES,
+    GaussianParams,
     GaussianScene,
     initial_arrays,
     pad_arrays,
     scene_from_arrays,
 )
+from gaussian_splatting_lightning_tpu_torch.training.optimizer import AdamState
 
 
 def scene_from_numpy(params: dict, alive, active_sh_degree: int,
@@ -34,6 +40,18 @@ def scene_from_numpy(params: dict, alive, active_sh_degree: int,
         params["opacity"], params["scales"], params["quats"], alive,
         active_sh_degree, device,
     )
+
+
+def adam_from_numpy(count, mu: dict, nu: dict, device="cuda") -> AdamState:
+    """``mu`` and ``nu`` map the six ``GaussianParams`` field names to the
+    moment arrays; ``count`` is the number of steps taken."""
+    dev = resolve_device(device)
+
+    def params(d):
+        return GaussianParams(**{k: torch.tensor(np.asarray(d[k]), dtype=torch.float32,
+                                                 device=dev) for k in PARAM_NAMES})
+
+    return AdamState(count=int(count), mu=params(mu), nu=params(nu))
 
 
 def camera_from_numpy(viewmatrix, projmatrix, campos, tanfovx, tanfovy,

@@ -1,1 +1,2 @@
-"""Render-path operators: preprocess, pair budget, binning, compositing."""
+"""Rasterizer operators: preprocess, pair budget, binning, compositing and its
+backward, SSIM."""

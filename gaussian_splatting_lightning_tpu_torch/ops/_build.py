@@ -30,15 +30,19 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "expand_pairs": "expand_pairs.cu",
     "composite_fwd": "composite_fwd.cu",
+    "composite_bwd": "composite_bwd.cu",
+    "segment_sum": "segment_sum.cu",
+    "blur": "blur.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # K1's whole slot arithmetic must round like the plain version's separate
-# PyTorch ops; K2 rounds its kill decision explicitly (__fmul_rn & co.) and
-# lets its accumulation contract to FMA
-EXTRA_FLAGS = {"expand_pairs": ("--fmad=false",), "composite_fwd": ()}
+# PyTorch ops; K2, K3 and K5 round what must match explicitly (__fmul_rn &
+# co.) and let the rest contract to FMA; K4 only adds
+EXTRA_FLAGS = {"expand_pairs": ("--fmad=false",), "composite_fwd": (),
+               "composite_bwd": (), "segment_sum": (), "blur": ()}
 
 
 def nvcc_flags(name: str) -> tuple:
@@ -50,6 +54,9 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "expand_pairs": ("gs_expand_pairs", [_VP] * 9 + [_I] * 6 + [_VP] * 3),
     "composite_fwd": ("gs_composite_fwd", [_VP] * 6 + [_I] * 6 + [_VP]),
+    "composite_bwd": ("gs_composite_bwd", [_VP] * 8 + [_I] * 6 + [_VP]),
+    "segment_sum": ("gs_segment_sum", [_VP] * 5 + [_I] * 2 + [_VP]),
+    "blur": ("gs_blur_valid", [_VP] * 2 + [_I] * 3 + [_VP]),
 }
 
 launches = {name: 0 for name in SOURCES}

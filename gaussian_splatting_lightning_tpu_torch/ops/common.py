@@ -65,10 +65,14 @@ def preprocess(
     max_sh_degree: Optional[int] = None,
     antialias: bool = False,
     alive: Optional[torch.Tensor] = None,  # (N,) bool padded-capacity mask
+    means2d_ndc_offset: Optional[torch.Tensor] = None,  # (N, 2) zeros whose
+    # gradient is the densification screen-space signal (NDC units)
 ) -> Preprocessed:
     opacities = opacities.reshape(-1)
     p_view = tf.apply_extrinsic(means3d, camera.viewmatrix)
     p_ndc = tf.apply_projection(means3d, camera.projmatrix)
+    if means2d_ndc_offset is not None:
+        p_ndc = p_ndc + means2d_ndc_offset
     visible = tf.in_frustum(p_view)
     if alive is not None:
         visible = visible & alive

@@ -1,9 +1,11 @@
-"""Forward rasterizer: feature table, binning, compositing (kernel K2).
+"""Rasterizer: feature table, binning, compositing and its backward
+(kernels K2, K3, K4).
 
-Counterpart of ``gaussian_splatting_lightning_tpu/ops/rasterize_pallas.py``
-(forward only): the ``gfeat_t`` feature table with its 16 px rect rows, the
-pair gather, ``_fwd_call``, ``_assemble_cf`` and ``rasterize_pallas``, here
-``rasterize``, with the same ``(RenderOutput, stats)`` contract.
+Counterpart of ``gaussian_splatting_lightning_tpu/ops/rasterize_pallas.py``:
+the ``gfeat_t`` feature table with its 16 px rect rows, the pair gather,
+``make_pair_pipeline`` (here ``PairComposite``), ``_assemble_cf`` and
+``rasterize_pallas``, here ``rasterize``, with the same
+``(RenderOutput, stats)`` contract.
 
 The compositor is K2 (``csrc/composite_fwd.cu``): one block per tile walks
 the tile's depth-sorted pairs and gathers each pair's feature row by splat id
@@ -15,9 +17,13 @@ stop ends a tile once every pixel has T <= 1e-4, checked every 256 pairs
 (the JAX kernel checks every 128): the two differ in ``T_fin * bg`` by less
 than 1e-4 |bg|.
 
-Layouts kept for the backward slice: the sorted pair stream (``gauss_s``,
-``slot_s``, tile ranges) from ``binning.build_sorted_bins`` and the
-(N, 16) original-order feature table ``gfeat``, gathered by ``gauss_s``.
+The backward is K3 (``csrc/composite_bwd.cu``), which re-walks each tile
+with K2's alpha chain and writes one 10-float gradient row per pair to the
+pair's expansion slot, then K4 (``csrc/segment_sum.cu``), which sums each
+splat's contiguous slot range into the (N, 16) gradient of the feature
+table. Autograd carries that gradient on through ``feature_table`` and
+``preprocess`` to the parameters. Pair gradients stay f32: the JAX package's
+bf16 routing was an answer to its sort payload and has no switch here.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from gaussian_splatting_lightning_tpu_torch.ops.common import (
 NFEAT = 16  # px py ca cb cc op r g b invz x0 x1 y0 y1 (2 pad)
 NOUT = 4  # r g b invd, channel first per tile
 BATCH = 256  # pairs per shared-memory batch in K2; early-stop granularity
+NGRAD = 10  # gradient rows per pair: d px py ca cb cc op r g b invz
 F_PX, F_PY, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_IZ = range(10)
 # At tile sizes other than the reference's 16 px, rows 10-13 carry the
 # splat's 16 px-granular tile rect (x0, x1, y0, y1): the reference applies
@@ -73,6 +80,39 @@ def feature_table(prep, width: int, height: int, block: int) -> torch.Tensor:
     ).contiguous()
 
 
+def _pixel_grid(n_tiles: int, grid_x: int, block: int, tile_y_offset: int, dev):
+    """(T, pix) f32 pixel coordinates (no +0.5) and 16 px subtile indices."""
+    pix = block * block
+    t = torch.arange(n_tiles, dtype=torch.int32, device=dev)[:, None]
+    p = torch.arange(pix, dtype=torch.int32, device=dev)[None, :]
+    px = (p % block).to(torch.float32) + ((t % grid_x) * block).to(torch.float32)
+    py = (p // block).to(torch.float32) + (
+        (t // grid_x + tile_y_offset) * block).to(torch.float32)
+    return px, py, torch.floor(px * 0.0625), torch.floor(py * 0.0625)
+
+
+def _pair_alpha(f, px, py, sx, sy, on, block):
+    """K2's alpha chain for one pair per tile, f (T, NFEAT) against (T, pix)
+    pixels, in the kernels' order: (dx, dy, raw = op e^power, alpha, keep)."""
+    dx = f[:, F_PX:F_PX + 1] - px
+    dy = f[:, F_PY:F_PY + 1] - py
+    power = -0.5 * (
+        f[:, F_CA:F_CA + 1] * dx * dx
+        + 2.0 * f[:, F_CB:F_CB + 1] * dx * dy
+        + f[:, F_CC:F_CC + 1] * dy * dy
+    )
+    raw = torch.exp(power) * f[:, F_OP:F_OP + 1]
+    alpha = torch.clamp_max(raw, ALPHA_CLAMP)
+    keep = (alpha > ALPHA_THRESHOLD) & on[:, None]
+    if block != 16:
+        keep = (
+            keep
+            & (sx >= f[:, F_X0:F_X0 + 1]) & (sx < f[:, F_X1:F_X1 + 1])
+            & (sy >= f[:, F_Y0:F_Y0 + 1]) & (sy < f[:, F_Y1:F_Y1 + 1])
+        )
+    return dx, dy, raw, alpha, keep
+
+
 def composite_fwd_plain(
     gfeat: torch.Tensor, gauss_s: torch.Tensor, tile_start: torch.Tensor,
     tile_count: torch.Tensor, bg: torch.Tensor, grid_x: int, block: int,
@@ -91,12 +131,7 @@ def composite_fwd_plain(
     """
     dev = gfeat.device
     n_tiles, pix = tile_start.shape[0], block * block
-    t = torch.arange(n_tiles, dtype=torch.int32, device=dev)[:, None]
-    p = torch.arange(pix, dtype=torch.int32, device=dev)[None, :]
-    px = (p % block).to(torch.float32) + ((t % grid_x) * block).to(torch.float32)
-    py = (p // block).to(torch.float32) + (
-        (t // grid_x + tile_y_offset) * block).to(torch.float32)
-    sx, sy = torch.floor(px * 0.0625), torch.floor(py * 0.0625)
+    px, py, sx, sy = _pixel_grid(n_tiles, grid_x, block, tile_y_offset, dev)
     trans = torch.ones(n_tiles, pix, dtype=torch.float32, device=dev)
     acc = [torch.zeros_like(trans) for _ in range(NOUT)]
     live = torch.ones(n_tiles, dtype=torch.bool, device=dev)
@@ -110,23 +145,9 @@ def composite_fwd_plain(
             if not bool(live.any()):
                 break
         f = gfeat[gauss_s[torch.clamp(tile_start + k, max=last)].long()]
-        dx = f[:, F_PX:F_PX + 1] - px
-        dy = f[:, F_PY:F_PY + 1] - py
-        power = -0.5 * (
-            f[:, F_CA:F_CA + 1] * dx * dx
-            + 2.0 * f[:, F_CB:F_CB + 1] * dx * dy
-            + f[:, F_CC:F_CC + 1] * dy * dy
-        )
-        alpha = torch.clamp_max(torch.exp(power) * f[:, F_OP:F_OP + 1], ALPHA_CLAMP)
         on = live & (k < tile_count)
         evaluated += on
-        keep = (alpha > ALPHA_THRESHOLD) & on[:, None]
-        if block != 16:
-            keep = (
-                keep
-                & (sx >= f[:, F_X0:F_X0 + 1]) & (sx < f[:, F_X1:F_X1 + 1])
-                & (sy >= f[:, F_Y0:F_Y0 + 1]) & (sy < f[:, F_Y1:F_Y1 + 1])
-            )
+        _, _, _, alpha, keep = _pair_alpha(f, px, py, sx, sy, on, block)
         if return_work:
             kept += keep.sum(dim=1)
         alpha = torch.where(keep, alpha, 0.0)
@@ -174,6 +195,176 @@ def composite_fwd(
     return out
 
 
+def composite_bwd_plain(
+    gfeat: torch.Tensor, gauss_s: torch.Tensor, slot_s: torch.Tensor,
+    tile_start: torch.Tensor, tile_count: torch.Tensor, out: torch.Tensor,
+    grad_out: torch.Tensor, grid_x: int, block: int, max_pairs: int,
+    tile_y_offset: int = 0, early_stop: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3: (max_pairs, NGRAD) f32 pair gradients,
+    row ``slot_s[k]`` for sorted pair k, zero where no pair was composited.
+
+    Walks the k-th pair of every tile at once with K2's alpha chain and
+    stop, and rounds the prefix/suffix chain op by op in K3's order, so each
+    pixel's terms equal the kernel's; only the pixel sums differ in order.
+    """
+    dev = gfeat.device
+    n_tiles, pix = tile_start.shape[0], block * block
+    px, py, sx, sy = _pixel_grid(n_tiles, grid_x, block, tile_y_offset, dev)
+    g = [grad_out[:, c] for c in range(NOUT)]
+    # G . out: the forward output already holds T_fin * bg
+    g_total = g[0] * out[:, 0] + g[1] * out[:, 1] + g[2] * out[:, 2] + g[3] * out[:, 3]
+    trans = torch.ones(n_tiles, pix, dtype=torch.float32, device=dev)
+    prefix = torch.zeros_like(trans)
+    live = torch.ones(n_tiles, dtype=torch.bool, device=dev)
+    dpair = torch.zeros(max_pairs, NGRAD, dtype=torch.float32, device=dev)
+    last = max(gauss_s.shape[0] - 1, 0)
+    max_count = int(tile_count.max()) if n_tiles else 0
+    for k in range(max_count):
+        if early_stop and k > 0 and k % BATCH == 0:
+            live = live & (trans > TRANSMITTANCE_EPS).any(dim=1)
+            if not bool(live.any()):
+                break
+        idx = torch.clamp(tile_start + k, max=last)
+        f = gfeat[gauss_s[idx].long()]
+        on = live & (k < tile_count)
+        dx, dy, raw, alpha, keep = _pair_alpha(f, px, py, sx, sy, on, block)
+        alpha = torch.where(keep, alpha, 0.0)
+        lit = trans > TRANSMITTANCE_EPS
+        w = torch.where(lit, alpha * trans, 0.0)
+        e = (g[0] * f[:, F_R:F_R + 1] + g[1] * f[:, F_G:F_G + 1]
+             + g[2] * f[:, F_B:F_B + 1] + g[3] * f[:, F_IZ:F_IZ + 1])
+        prefix = torch.where(keep, prefix + w * e, prefix)
+        one_minus = 1.0 - alpha
+        d_alpha = torch.where(lit, e * trans, 0.0) - (g_total - prefix) / one_minus
+        d_power = torch.where(keep & (raw < ALPHA_CLAMP), d_alpha * alpha, 0.0)
+        m1x, m1y = d_power * dx, d_power * dy
+        terms = [d_power, m1x, m1y, m1x * dx, m1x * dy, m1y * dy] + [gc * w for gc in g]
+        m = [x.sum(dim=1) for x in terms]  # (T,) pixel sums
+        ca, cb, cc, op = (f[:, i] for i in (F_CA, F_CB, F_CC, F_OP))
+        rows = torch.stack([
+            -(ca * m[1] + cb * m[2]), -(cb * m[1] + cc * m[2]),
+            -0.5 * m[3], -m[4], -0.5 * m[5],
+            m[0] / torch.clamp_min(op, 1e-30), *m[6:],
+        ], dim=1)
+        dpair[slot_s[idx][on].long()] = rows[on]
+        trans = trans * one_minus
+    return dpair
+
+
+def composite_bwd(
+    gfeat: torch.Tensor, gauss_s: torch.Tensor, slot_s: torch.Tensor,
+    tile_start: torch.Tensor, tile_count: torch.Tensor, out: torch.Tensor,
+    grad_out: torch.Tensor, grid_x: int, block: int, max_pairs: int,
+    tile_y_offset: int = 0, early_stop: bool = True,
+) -> torch.Tensor:
+    """K3 wrapper: launches ``csrc/composite_bwd.cu`` on CUDA tensors, runs
+    the plain version on CPU tensors. Returns (max_pairs, NGRAD) f32."""
+    args = (gfeat, gauss_s, slot_s, tile_start, tile_count, out, grad_out,
+            grid_x, block, max_pairs, tile_y_offset, early_stop)
+    if gfeat.device.type == "cpu":
+        return composite_bwd_plain(*args)
+    if block not in (16, 32):
+        raise ValueError(f"K3 takes 16 or 32 px tiles, got {block}")
+    dev = gfeat.device
+    n_tiles = tile_start.shape[0]
+    _build.check_tensor(gfeat, "gfeat", torch.float32, dev)
+    if gfeat.dim() != 2 or gfeat.shape[1] != NFEAT or gfeat.data_ptr() % 16:
+        raise ValueError(f"gfeat must be a 16-byte aligned (N, {NFEAT}) table")
+    for name, t in (("gauss_s", gauss_s), ("slot_s", slot_s),
+                    ("tile_start", tile_start), ("tile_count", tile_count)):
+        _build.check_tensor(t, name, torch.int32, dev)
+    canvas = (n_tiles, NOUT, block * block)
+    for name, t in (("out", out), ("grad_out", grad_out)):
+        _build.check_tensor(t, name, torch.float32, dev)
+        if tuple(t.shape) != canvas:
+            raise ValueError(f"{name} must be {canvas}, got {tuple(t.shape)}")
+    if slot_s.shape != gauss_s.shape or int(slot_s.shape[0]) > max_pairs:
+        raise ValueError("slot_s must match gauss_s and index max_pairs rows")
+    dpair = torch.zeros(max_pairs, NGRAD, dtype=torch.float32, device=dev)
+    lib = _build.load("composite_bwd")
+    p = _build.ptr
+    rc = lib.gs_composite_bwd(
+        p(gfeat), p(gauss_s), p(slot_s), p(tile_start), p(tile_count), p(out),
+        p(grad_out), p(dpair), n_tiles, grid_x, block, tile_y_offset,
+        int(block != 16), int(early_stop), _build.stream_of(dpair),
+    )
+    _build.check(lib, "composite_bwd", rc)
+    return dpair
+
+
+def segment_sum_plain(dpair: torch.Tensor, offsets: torch.Tensor,
+                      ntiles: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: (N, NFEAT) f32 per-splat gradient table.
+
+    Depth rank j owns the slots [offsets[j], min(offsets[j] + ntiles[order[j]],
+    M)) of ``dpair`` (M, NGRAD); their sum lands in row ``order[j]``."""
+    n, max_pairs = offsets.shape[0], dpair.shape[0]
+    slot = torch.arange(max_pairs, dtype=torch.int32, device=dpair.device)
+    rank = torch.clamp(torch.searchsorted(offsets, slot, right=True) - 1, 0, n - 1)
+    owned = slot < offsets[rank] + ntiles[order.long()][rank]
+    out = torch.zeros(n, NFEAT, dtype=torch.float32, device=dpair.device)
+    out[:, :NGRAD].index_add_(0, order[rank].long(),
+                              torch.where(owned[:, None], dpair, 0.0))
+    return out
+
+
+def segment_sum(dpair: torch.Tensor, offsets: torch.Tensor,
+                ntiles: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """K4 wrapper: launches ``csrc/segment_sum.cu`` on CUDA tensors, runs the
+    plain version on CPU tensors. Returns (N, NFEAT) f32."""
+    if dpair.device.type == "cpu":
+        return segment_sum_plain(dpair, offsets, ntiles, order)
+    dev = dpair.device
+    _build.check_tensor(dpair, "dpair", torch.float32, dev)
+    if dpair.dim() != 2 or dpair.shape[1] != NGRAD:
+        raise ValueError(f"dpair must be (M, {NGRAD}), got {tuple(dpair.shape)}")
+    n = offsets.shape[0]
+    for name, t in (("offsets", offsets), ("ntiles", ntiles), ("order", order)):
+        _build.check_tensor(t, name, torch.int32, dev)
+        if t.shape != (n,):
+            raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
+    out = torch.empty(n, NFEAT, dtype=torch.float32, device=dev)
+    lib = _build.load("segment_sum")
+    p = _build.ptr
+    rc = lib.gs_segment_sum(p(dpair), p(offsets), p(ntiles), p(order), p(out),
+                            n, dpair.shape[0], _build.stream_of(out))
+    _build.check(lib, "segment_sum", rc)
+    return out
+
+
+class PairComposite(torch.autograd.Function):
+    """The compositor as one autograd function, the counterpart of
+    ``make_pair_pipeline``: forward K2 on the (N, NFEAT) feature table,
+    backward K3 then K4, returning the table's gradient (rows 10-15 zero)
+    and no gradient for the bins or the background. ``plain`` runs the
+    three plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, gfeat, bins, bg, grid_x, block, max_pairs, tile_y_offset,
+                early_stop, plain):
+        composite = composite_fwd_plain if plain else composite_fwd
+        out = composite(gfeat, bins.gauss_s, bins.tile_start, bins.tile_count,
+                        bg, grid_x, block, tile_y_offset, early_stop)
+        ctx.save_for_backward(gfeat, out, bins.gauss_s, bins.slot_s,
+                              bins.tile_start, bins.tile_count, bins.offsets,
+                              bins.ntiles, bins.order)
+        ctx.static = (grid_x, block, max_pairs, tile_y_offset, early_stop, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (gfeat, out, gauss_s, slot_s, tile_start, tile_count, offsets, ntiles,
+         order) = ctx.saved_tensors
+        grid_x, block, max_pairs, tile_y_offset, early_stop, plain = ctx.static
+        bwd = composite_bwd_plain if plain else composite_bwd
+        dpair = bwd(gfeat, gauss_s, slot_s, tile_start, tile_count, out,
+                    grad_out.contiguous(), grid_x, block, max_pairs,
+                    tile_y_offset, early_stop)
+        reduce = segment_sum_plain if plain else segment_sum
+        return (reduce(dpair, offsets, ntiles, order),) + (None,) * 8
+
+
 def _assemble_cf(out_t, grid_x, grid_y, width, height, block):
     """(T, C, pix) channel-first tile canvas -> (C, H, W) image."""
     c = out_t.shape[1]
@@ -185,21 +376,21 @@ def _assemble_cf(out_t, grid_x, grid_y, width, height, block):
 def rasterize(
     means3d, opacities, scales, quats, sh, camera, width, height,
     background, sh_degree, config=None, max_sh_degree=None,
-    antialias: bool = False, alive=None, tile_y_offset: int = 0,
-    grid_y_local=None, early_stop: bool = True, prep=None,
-    plain: bool = False,
+    antialias: bool = False, alive=None, means2d_ndc_offset=None,
+    tile_y_offset: int = 0, grid_y_local=None, early_stop: bool = True,
+    prep=None, plain: bool = False,
 ):
     """Render one view: (RenderOutput, stats), the ``rasterize_pallas``
-    contract. ``plain`` runs K1's and K2's plain versions on any device;
-    otherwise CUDA tensors go through the kernels and CPU tensors through
-    the plain versions. ``prep`` accepts an externally computed
-    ``Preprocessed``."""
+    contract, differentiable in every float input. ``plain`` runs the
+    kernels' plain versions on any device; otherwise CUDA tensors go through
+    the kernels and CPU tensors through the plain versions. ``prep`` accepts
+    an externally computed ``Preprocessed``."""
     config = config or TilingConfig()
     blk = config.resolve_block()
     if prep is None:
         prep = preprocess(
             means3d, opacities, scales, quats, sh, camera, width, height,
-            sh_degree, max_sh_degree, antialias, alive,
+            sh_degree, max_sh_degree, antialias, alive, means2d_ndc_offset,
         )
     grid_x, grid_y = binning.grid_shape(width, height, blk, blk)
     banded = grid_y_local is not None
@@ -212,9 +403,8 @@ def rasterize(
     )
     gfeat = feature_table(prep, width, height, blk)
     bg = torch.as_tensor(background, dtype=torch.float32).to(gfeat.device).reshape(3)
-    composite = composite_fwd_plain if plain else composite_fwd
-    out = composite(gfeat, bins.gauss_s, bins.tile_start, bins.tile_count, bg,
-                    grid_x, blk, tile_y_offset, early_stop)
+    out = PairComposite.apply(gfeat, bins, bg, grid_x, blk, max_pairs,
+                              tile_y_offset, early_stop, plain)
 
     out_h = gy * blk if banded else height
     imgd = _assemble_cf(out, grid_x, gy, width, out_h, blk)  # (NOUT, H, W)

@@ -1,0 +1,134 @@
+"""Differentiable SSIM and PSNR, with the separable blur as kernel K5.
+
+Counterpart of ``gaussian_splatting_lightning_tpu/ops/ssim.py``: an 11x11
+Gaussian window (sigma 1.5), C1 = 0.01^2, C2 = 0.03^2, zero padding, mean
+over pixels and channels. The five blurred quantities (x, y, x^2, y^2, xy of
+the centered images) are one 5C-channel VALID blur, K5
+(``csrc/blur.cu``); ``BlurValid`` is its autograd function, whose backward
+is the same blur of the cotangent zero-padded by 10 (the window is
+symmetric).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from gaussian_splatting_lightning_tpu_torch.ops import _build
+
+C1 = 0.01 ** 2
+C2 = 0.03 ** 2
+WINDOW = 11  # K5's window is compiled in
+SIGMA = 1.5
+HALO = WINDOW - 1
+
+
+def gaussian_window(size: int = WINDOW, sigma: float = SIGMA) -> np.ndarray:
+    """(size,) f32 normalised Gaussian taps, computed in float64 as the JAX
+    package does."""
+    x = np.arange(size) - size // 2
+    g = np.exp(-(x ** 2) / (2.0 * sigma ** 2))
+    return (g / g.sum()).astype(np.float32)
+
+
+TAPS = tuple(float(t) for t in gaussian_window())  # K5 holds them as literals
+
+
+def blur_valid_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: (C, Hp, Wp) -> (C, Hp - 10, Wp - 10),
+    vertical taps then horizontal, summed in tap order (K5's order)."""
+    h, w = x.shape[1] - HALO, x.shape[2] - HALO
+    mid = x[:, 0:h] * TAPS[0]
+    for k in range(1, WINDOW):
+        mid = mid + x[:, k:k + h] * TAPS[k]
+    out = mid[:, :, 0:w] * TAPS[0]
+    for k in range(1, WINDOW):
+        out = out + mid[:, :, k:k + w] * TAPS[k]
+    return out
+
+
+def blur_valid(x: torch.Tensor) -> torch.Tensor:
+    """K5 wrapper: launches ``csrc/blur.cu`` on CUDA tensors, runs the plain
+    version on CPU tensors. (C, Hp, Wp) f32 -> (C, Hp - 10, Wp - 10)."""
+    if x.device.type == "cpu":
+        return blur_valid_plain(x)
+    _build.check_tensor(x, "x", torch.float32, x.device)
+    if x.dim() != 3 or x.shape[1] <= HALO or x.shape[2] <= HALO:
+        raise ValueError(f"x must be (C, Hp, Wp) with Hp, Wp > {HALO}, got {tuple(x.shape)}")
+    c, hp, wp = x.shape
+    out = torch.empty(c, hp - HALO, wp - HALO, dtype=torch.float32, device=x.device)
+    lib = _build.load("blur")
+    p = _build.ptr
+    rc = lib.gs_blur_valid(p(x), p(out), c, hp, wp, _build.stream_of(out))
+    _build.check(lib, "blur", rc)
+    return out
+
+
+class BlurValid(torch.autograd.Function):
+    """VALID blur with K5 in both directions: the adjoint of a VALID
+    correlation with a symmetric window is the same correlation of the
+    cotangent zero-padded by the halo. ``plain`` runs the plain version on
+    any device."""
+
+    @staticmethod
+    def forward(ctx, x, plain):
+        ctx.plain = plain
+        return (blur_valid_plain if plain else blur_valid)(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ctp = F.pad(ct, (HALO, HALO, HALO, HALO)).contiguous()
+        return (blur_valid_plain if ctx.plain else blur_valid)(ctp), None
+
+
+def ssim_stack(img1: torch.Tensor, img2: torch.Tensor):
+    """The blur's input: (B * 5C, H + 10, W + 10) stack of the zero-padded,
+    centred x, y, x^2, y^2 and xy, and the two centres.
+
+    Variances are taken on globally centred inputs (centred on each image's
+    detached mean): exact for any constant shift, and in f32 the uncentred
+    form loses about 7 digits on smooth renders. The images are zero-padded
+    first and shifted after, so pixels outside the image read as 0."""
+    c1 = img1.mean().detach()
+    c2 = img2.mean().detach()
+    r = WINDOW // 2
+    y1 = F.pad(img1, (r, r, r, r)) - c1
+    y2 = F.pad(img2, (r, r, r, r)) - c2
+    stacked = torch.cat([y1, y2, y1 * y1, y2 * y2, y1 * y2], dim=1)
+    b, c5, hp, wp = stacked.shape
+    return stacked.reshape(b * c5, hp, wp).contiguous(), c1, c2
+
+
+def ssim_from_blurred(blurred: torch.Tensor, c1, c2, batch: int) -> torch.Tensor:
+    """The SSIM map (B, C, H, W) from the blurred stack (B * 5C, H, W)."""
+    by1, by2, b11, b22, b12 = blurred.reshape(batch, -1, *blurred.shape[1:]).chunk(5, dim=1)
+    mu1 = by1 + c1
+    mu2 = by2 + c2
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = b11 - by1 * by1
+    sigma2_sq = b22 - by2 * by2
+    sigma12 = b12 - by1 * by2
+    return ((2.0 * mu12 + C1) * (2.0 * sigma12 + C2)) / (
+        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2)
+    )
+
+
+def ssim_map(img1: torch.Tensor, img2: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Per-pixel SSIM map, (B, C, H, W) -> (B, C, H, W), zero padding; one
+    5C-channel blur (``ssim_stack``) between the two halves."""
+    stacked, c1, c2 = ssim_stack(img1, img2)
+    return ssim_from_blurred(BlurValid.apply(stacked, plain), c1, c2, img1.shape[0])
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Mean SSIM between two (B, C, H, W) or (C, H, W) images in [0, 1]."""
+    if img1.dim() == 3:
+        img1, img2 = img1[None], img2[None]
+    return ssim_map(img1, img2, plain).mean()
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio."""
+    mse = torch.mean((img1 - img2) ** 2)
+    return 10.0 * torch.log10(data_range ** 2 / torch.clamp_min(mse, 1e-12))

@@ -1,1 +1,1 @@
-"""Rendering entry points of the trainer (the training step comes later)."""
+"""The training step: render, loss, backward, Adam, densification statistics."""

@@ -1,0 +1,30 @@
+"""Training loss: L1/SSIM mix and PSNR.
+
+Counterpart of ``gaussian_splatting_lightning_tpu/training/loss.py``:
+loss = (1 - w_ssim) L1 + w_ssim (1 - SSIM), w_ssim = 0.2 by default.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gaussian_splatting_lightning_tpu_torch.ops.ssim import psnr, ssim
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))
+
+
+def photometric_loss(pred: torch.Tensor, target: torch.Tensor,
+                     w_ssim: float = 0.2, plain: bool = False):
+    """Returns (loss, logs dict). ``plain`` runs SSIM's blur as its plain
+    version on any device."""
+    recon = l1_loss(pred, target)
+    loss_ssim = 1.0 - ssim(pred, target, plain)
+    loss = recon * (1.0 - w_ssim) + loss_ssim * w_ssim
+    return loss, {
+        "loss": loss,
+        "recon": recon,
+        "ssim": loss_ssim,
+        "psnr": psnr(pred, target),
+    }

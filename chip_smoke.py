@@ -10,12 +10,14 @@ Phases (any failure exits non-zero):
      the kernels from ``gaussian_splatting_lightning_tpu_torch/csrc``.
   2. kernels against their plain PyTorch versions at 256x192 with 20k
      anisotropic splats, 16 and 32 px tiles, non-zero background: K1's
-     (key, gauss) and tile ranges identical, K2 within 1e-4.
+     (key, gauss) and tile ranges identical, K2 within 1e-4 and the same
+     bits on a second run.
   3. the main path: the bench scene (1M splats, SH degree 3) through the
      port's PLY round trip, four 1920x1080 views through ``render_scene``
      with the budget from ``pair_budget``; every kernel must launch on every
-     view. Then each kernel is held against its plain version and timed on
-     the bench view's own inputs.
+     view. Then each kernel is held against its plain version (K2 also
+     against its own second run, bit for bit) and timed on the bench view's
+     own inputs.
   4. the port's render CLI on a small COLMAP scene that the port writes.
   5. the training step: at 256x192 with 20k splats, the whole step's
      gradients on route "cuda" against route "plain"; then the bench scene
@@ -23,7 +25,8 @@ Phases (any failure exits non-zero):
      the same budget (a ``train_step:`` line each: loss finite, 0 dropped
      pairs, K1-K4 launched once and K5 twice per step, every parameter
      group moved). Then K3, K4 and K5 are held against their plain versions
-     and timed on the bench step's own inputs, beside one-call library
+     (K3 also against its own second run, bit for bit) and timed on the
+     bench step's own inputs, beside one-call library
      equivalents; ``train_stages_ms`` splits the step and a profile line
      gives its device idle share.
 
@@ -168,6 +171,40 @@ def _prep(scene, cam, w, h):
     )
 
 
+def warp_work(gfeat, bins, evals, gx, blk):
+    """(pair, warp) evaluations of K2 and K3 and their cull: every pair a
+    tile composites (up to its early stop, ``evals`` per tile) against each
+    warp's 16x8 patch; how many of those the plain mirror of the kernels'
+    cull box skips, and how many the 16 px rect alone would skip (0 at
+    16 px tiles, which have no rect)."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.ops import rasterize
+
+    n_tiles = bins.tile_count.shape[0]
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device="cuda"),
+                                   bins.tile_count.long())
+    first = torch.cumsum(bins.tile_count.long(), 0) - bins.tile_count.long()
+    pos = torch.arange(tile.shape[0], device="cuda") - first[tile]
+    composited = pos < evals[tile]
+    tile, pos = tile[composited], pos[composited]
+    rows = gfeat[bins.gauss_s[bins.tile_start[tile].long() + pos].long()]
+    box = rasterize.pair_cull_box(rows, blk)
+    cols = blk // rasterize.PATCH_W
+    warp = torch.arange(blk * blk // (rasterize.PATCH_W * rasterize.PATCH_H), device="cuda")
+    x0 = ((tile % gx) * blk)[:, None] + (warp % cols * rasterize.PATCH_W)[None]
+    y0 = ((tile // gx) * blk)[:, None] + (warp // cols * rasterize.PATCH_H)[None]
+    culled = rasterize.patch_culled(box[:, None, :], x0.float(), y0.float())
+    rect_only = 0
+    if blk != 16:
+        sx, sy = (x0 // 16).float(), (y0 // 16).float()
+        x_lo, x_hi, y_lo, y_hi = (rows[:, i:i + 1] for i in (
+            rasterize.F_X0, rasterize.F_X1, rasterize.F_Y0, rasterize.F_Y1))
+        outside = (sx < x_lo) | (sx >= x_hi) | (sy < y_lo) | (sy >= y_hi)
+        rect_only = int(outside.sum())
+    return culled.numel(), int(culled.sum()), rect_only
+
+
 def compare_kernels(prep, w, h, blk, max_pairs, bg):
     """K1 and K2 against their plain versions on one view's inputs.
 
@@ -196,10 +233,13 @@ def compare_kernels(prep, w, h, blk, max_pairs, bg):
     gfeat = rasterize.feature_table(prep, w, h, blk)
     args = (gfeat, bins_k.gauss_s, bins_k.tile_start, bins_k.tile_count, bg, gx, blk)
     out_k = rasterize.composite_fwd(*args)
+    out_again = rasterize.composite_fwd(*args)
     out_p, evals, kept = rasterize.composite_fwd_plain(*args, return_work=True)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(out_k).all()):
         fail(f"K2 block {blk}: non-finite output")
+    if not torch.equal(out_k, out_again):
+        fail(f"K2 block {blk}: a second run gave other bits")
     k2_diff = float((out_k - out_p).abs().max())
     ctx = dict(inp=inp, max_pairs=max_pairs, gx=gx, n_tiles=n_tiles, blk=blk,
                args=args, bins=bins_k, evals=evals, kept=kept, n=prep.depth.shape[0])
@@ -354,13 +394,17 @@ def phase3():
     k2_flops = evals * K2_OPS_TO_KILL[blk] + kept * K2_FLOPS_KEPT
     k2_bound = {"bytes": k2_bytes / HBM_BYTES_PER_S, "operations": k2_flops / F32_FLOPS}
     k2_by = max(k2_bound, key=k2_bound.get)
-    # what this design can reach: its kill chain is rounded op by op, so
-    # only the four sums fuse, and each instruction takes an issue slot
+    # what a pixel-per-thread design without cull can reach: its kill chain
+    # is rounded op by op, so only the four sums fuse, and each instruction
+    # takes an issue slot
     k2_issue_ms = (evals * K2_OPS_TO_KILL[blk] + kept * K2_INSTR_KEPT) / F32_ISSUE * 1e3
+    warps, culled, by_rect = warp_work(ctx["args"][0], ctx["bins"], ctx["evals"], ctx["gx"], blk)
     print(f"K2 work: {binned} binned pairs, {evals} pair-pixel evaluations "
           f"after early stop, {kept} of them past the kill, {k2_flops} flops, "
-          f"{k2_bytes} bytes; f32 issue floor of this design {k2_issue_ms:.4f} ms",
-          flush=True)
+          f"{k2_bytes} bytes; f32 issue floor of a pixel-per-thread design without cull "
+          f"{k2_issue_ms:.4f} ms; "
+          f"{warps} (pair, warp) evaluations, {culled} of them skipped by the cull "
+          f"({culled / max(warps, 1):.4f}), {by_rect} by the 16 px rect alone", flush=True)
 
     # where one bench-view render's time goes: each stage run alone (event
     # time, launch gaps included), then the device's busy share under the
@@ -596,10 +640,16 @@ def phase5(scene, budget):
     k3_args = (gfeat, bins.gauss_s, bins.slot_s, bins.tile_start, bins.tile_count,
                out, grad_out, gx, blk, m)
     dk = rasterize.composite_bwd(*k3_args)
+    dk_again = rasterize.composite_bwd(*k3_args)
     dp = rasterize.composite_bwd_plain(*k3_args)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(dk).all()):
         fail("K3 at 1080p: non-finite pair gradients")
+    if not torch.equal(dk, dk_again):
+        fail("K3 at 1080p: a second run gave other bits")
+    if not torch.equal(dk.abs().sum(1) == 0, dp.abs().sum(1) == 0):
+        fail("K3 at 1080p: the kernel and the plain version zero different rows")
+    del dk_again
     k3_rel, k3_abs = col_err(dk, dp), float((dk - dp).abs().max())
     sk = rasterize.segment_sum(dk, bins.offsets, bins.ntiles, bins.order)
     sp = rasterize.segment_sum_plain(dk, bins.offsets, bins.ntiles, bins.order)
@@ -624,11 +674,11 @@ def phase5(scene, budget):
     # times, bounds and one-call library equivalents
     k3_ms = cuda_time_ms(lambda: rasterize.composite_bwd(*k3_args), 10)
     k3_plain_ms = cuda_time_ms(lambda: rasterize.composite_bwd_plain(*k3_args), 1)
-    _, evals, kept = rasterize.composite_fwd_plain(
+    _, evals_t, kept = rasterize.composite_fwd_plain(
         gfeat, bins.gauss_s, bins.tile_start, bins.tile_count, bg, gx, blk,
         return_work=True)
     pix, n, n_tiles = blk * blk, prep.depth.shape[0], gx * gy
-    evals, kept = int(evals.sum()) * pix, int(kept.sum())
+    evals, kept = int(evals_t.sum()) * pix, int(kept.sum())
     binned = int(bins.tile_count.sum())
     k3_flops = evals * K2_OPS_TO_KILL[blk] + kept * K3_FLOPS_KEPT
     k3_bytes = n * 64 + binned * 8 + n_tiles * (8 + 2 * 4 * pix * 4) + m * ng * 4
@@ -658,8 +708,11 @@ def phase5(scene, budget):
     k5_lib_diff = float((conv - ssim.blur_valid(stack)).abs().max())
     k5_bytes = (stack.numel() + c * (stack.shape[1] - ssim.HALO)
                 * (stack.shape[2] - ssim.HALO)) * 4
+    warps, culled, by_rect = warp_work(gfeat, bins, evals_t, gx, blk)
     print(f"K3 work: {binned} binned pairs, {evals} pair-pixel evaluations, {kept} "
-          f"past the kill, {k3_flops} flops, {k3_bytes} bytes; K4: {rows} rows "
+          f"past the kill, {k3_flops} flops, {k3_bytes} bytes, {warps} (pair, warp) "
+          f"evaluations, {culled} skipped by the cull ({by_rect} by the rect alone); "
+          f"K4: {rows} rows "
           f"summed, segment_reduce vs K4 max diff {k4_lib_diff:.3g}; K5: stack "
           f"{tuple(stack.shape)}, conv2d vs K5 max diff {k5_lib_diff:.3g}, "
           f"VJP launch {k5_bwd_ms:.4f} ms", flush=True)

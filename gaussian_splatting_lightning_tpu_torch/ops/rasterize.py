@@ -113,6 +113,52 @@ def _pair_alpha(f, px, py, sx, sy, on, block):
     return dx, dy, raw, alpha, keep
 
 
+# The margin of K2's and K3's cull (``cull_box`` in csrc/composite_fwd.cu and
+# csrc/composite_bwd.cu). A pixel is kept only where q = ca dx^2 + 2 cb dx dy
+# + cc dy^2 < 2 ln(255 op); the rounded q of ``_pair_alpha`` is within
+# 9.6e-7 ca cc / det of q relatively, so the threshold is widened by 2% and
+# 1e-3, the box's half-extents sqrt(tau cc / det), sqrt(tau ca / det) by
+# 1e-5 of themselves, 0.02 px and 1e-6 of the centre (the rounding of
+# dx, dy and of the box's own arithmetic), and a conic with ca cc > 1e4 det
+# gets no box.
+CULL_TAU_REL, CULL_TAU_ABS, CULL_MAX_ASPECT = 1.02, 1e-3, 1e4
+CULL_PAD_REL, CULL_PAD_ABS, CULL_PAD_POS = 1.00001, 0.02, 1e-6
+PATCH_W, PATCH_H = 16, 8  # the pixels a warp of K2 or K3 owns
+
+
+def pair_cull_box(f: torch.Tensor, block: int) -> torch.Tensor:
+    """Plain version of the kernels' ``cull_box``: (N, 4) f32 pixel ranges
+    (x_lo, x_hi, y_lo, y_hi) of the feature rows ``f`` (N, NFEAT), outside
+    which ``_pair_alpha`` keeps no pixel; at block != 16 cut to the pixels of
+    the row's 16 px rect, so that a patch inside one subtile misses the range
+    exactly when its subtile is outside the rect. (-inf, inf) ranges where no
+    box is drawn; an empty range where op is below 1/255."""
+    mx, my, a, b, c, op = (f[:, i] for i in (F_PX, F_PY, F_CA, F_CB, F_CC, F_OP))
+    det = a * c - b * b
+    drawn = (a > 0) & (c > 0) & (det > 0) & (a * c <= CULL_MAX_ASPECT * det)
+    tau = 2.0 * torch.log(255.0 * op) * CULL_TAU_REL + CULL_TAU_ABS
+    hx = torch.sqrt(tau * c / det) * CULL_PAD_REL + (CULL_PAD_ABS + CULL_PAD_POS * mx.abs())
+    hy = torch.sqrt(tau * a / det) * CULL_PAD_REL + (CULL_PAD_ABS + CULL_PAD_POS * my.abs())
+    inf = torch.full_like(mx, float("inf"))
+    whole = torch.stack([-inf, inf, -inf, inf], dim=1)
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], dim=1)
+    box = torch.where((drawn & (tau > 0))[:, None], box, whole)
+    box = torch.where((drawn & (tau <= 0))[:, None], -whole, box)
+    if block != 16:  # fmax/fmin drop a NaN bound: the rect alone then decides
+        lo = torch.fmax(box[:, 0::2], 16.0 * f[:, [F_X0, F_Y0]])
+        hi = torch.fmin(box[:, 1::2], 16.0 * f[:, [F_X1, F_Y1]] - 1.0)
+        box = torch.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]], dim=1)
+    return box
+
+
+def patch_culled(box: torch.Tensor, x0, y0) -> torch.Tensor:
+    """The test a warp of K2 or K3 makes: whether its patch of pixels
+    [x0, x0 + PATCH_W) x [y0, y0 + PATCH_H) misses ``box`` (..., 4)."""
+    x1, y1 = x0 + (PATCH_W - 1), y0 + (PATCH_H - 1)
+    return ((x1 < box[..., 0]) | (x0 > box[..., 1])
+            | (y1 < box[..., 2]) | (y0 > box[..., 3]))
+
+
 def composite_fwd_plain(
     gfeat: torch.Tensor, gauss_s: torch.Tensor, tile_start: torch.Tensor,
     tile_count: torch.Tensor, bg: torch.Tensor, grid_x: int, block: int,

@@ -13,8 +13,14 @@ skip with a reason. On the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
+K2 and K3 skip (pair, warp) evaluations by a cull box; the near-threshold
+and uneven-tile cases below hold that cull to the plain versions, and every
+K2 and K3 case also checks that a second run gives the same bits.
+
 This file imports no JAX: the machine with the card has none.
 """
+
+import math
 
 import pytest
 import torch
@@ -253,3 +259,128 @@ def test_train_step_gradients_cuda_match_plain(scene):
         assert float((a - b).abs().max()) <= 1e-4 * scale, k
     a, b = out["cuda"][1], out["plain"][1]
     assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _check_pair_kernels(gfeat, gauss_s, slot_s, tile_start, tile_count, gx, block,
+                        max_pairs, early_stop, seed=0):
+    """K2 and K3 against their plain versions on the same inputs: K2 within
+    1e-4, K3 within 1e-4 of each column's largest magnitude with the same
+    zero rows, and each kernel giving the same bits on a second run."""
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    fwd = (gfeat, gauss_s, tile_start, tile_count, bg, gx, block, 0, early_stop)
+    out = rasterize.composite_fwd(*fwd)
+    again = rasterize.composite_fwd(*fwd)
+    plain = rasterize.composite_fwd_plain(*fwd)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float((out - plain).abs().max()) <= K2_TOL
+    assert torch.equal(out, again)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grad_out = torch.randn(out.shape, device="cuda", generator=gen)
+    bwd = (gfeat, gauss_s, slot_s, tile_start, tile_count, out, grad_out, gx, block,
+           max_pairs, 0, early_stop)
+    dk = rasterize.composite_bwd(*bwd)
+    dk2 = rasterize.composite_bwd(*bwd)
+    dp = rasterize.composite_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dk).all()) and float(dp.abs().max()) > 0
+    assert col_err(dk, dp) <= 1e-4
+    assert torch.equal(dk.abs().sum(1) == 0, dp.abs().sum(1) == 0)
+    assert torch.equal(dk, dk2)
+
+
+@pytest.mark.parametrize("block", [16, 32])
+def test_pair_kernels_are_deterministic(prep, block):
+    args, _ = _bwd_inputs(prep, block, True)
+    gfeat, gauss_s, slot_s, tile_start, tile_count, out, grad_out = args[:7]
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    fwd = (gfeat, gauss_s, tile_start, tile_count, bg, args[7], block)
+    outs = [rasterize.composite_fwd(*fwd) for _ in range(3)]
+    grads = [rasterize.composite_bwd(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert all(torch.equal(grads[0], g) for g in grads[1:])
+
+
+@pytest.mark.parametrize("block", [16, 32])
+def test_pair_kernels_near_the_threshold(prep, block):
+    """Opacities set so that, for most splats, a pixel on the patch edge
+    nearest to its centre (a column edge for half of them, a row edge for
+    the others) has alpha within 4 ulp of 1/255: a cull that is not
+    conservative drops it where the plain version keeps it."""
+    gx, gy = binning.grid_shape(W, H, block, block)
+    bins = binning.build_sorted_bins(prep, gx, gy, MAX_PAIRS, block=block)
+    gfeat = rasterize.feature_table(prep, W, H, block).detach().clone()
+    n = gfeat.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mx, my = gfeat[:, rasterize.F_PX], gfeat[:, rasterize.F_PY]
+    side = torch.randint(0, 2, (n,), device="cuda", generator=gen).float()
+    column = torch.arange(n, device="cuda") % 2 == 0
+    # x = 16 k - 1 or 16 k (y = 8 k - 1 or 8 k): the last or first pixel of a patch
+    ex = torch.where(column, torch.round(mx / rasterize.PATCH_W) * rasterize.PATCH_W - side,
+                     torch.floor(mx))
+    ey = torch.where(column, torch.floor(my),
+                     torch.round(my / rasterize.PATCH_H) * rasterize.PATCH_H - side)
+    probe = gfeat.clone()
+    probe[:, rasterize.F_OP] = 1.0
+    on = torch.ones(n, dtype=torch.bool, device="cuda")
+    _, _, raw, _, _ = rasterize._pair_alpha(probe, ex[:, None], ey[:, None],
+                                            ex[:, None], ey[:, None], on, 16)
+    ulps = torch.randint(-4, 5, (n,), device="cuda", generator=gen).float()
+    op = (rasterize.ALPHA_THRESHOLD / raw[:, 0]) * (1.0 + ulps * 2.0 ** -23)
+    near = (raw[:, 0] > 0) & (op <= 1.0) & torch.isfinite(op)
+    assert int(near.sum()) > n // 3
+    gfeat[:, rasterize.F_OP] = torch.where(near, op, gfeat[:, rasterize.F_OP])
+    for early_stop in (False, True):
+        _check_pair_kernels(gfeat, bins.gauss_s, bins.slot_s, bins.tile_start,
+                            bins.tile_count, gx, block, MAX_PAIRS, early_stop)
+
+
+def _uneven_bins(block, seed=3):
+    """One tile with 3001 pairs of splats centred on it, one with 256 and one
+    with 37 pairs of splats anywhere, every other tile empty; rects of one to
+    three subtiles around each centre."""
+    rng = np.random.default_rng(seed)
+    gx, gy = binning.grid_shape(W, H, block, block)
+    n_tiles, n, big = gx * gy, 4000, gx + 1
+    counts = np.zeros(n_tiles, np.int32)
+    counts[big], counts[n_tiles - 1], counts[0] = 3001, 256, 37
+    mx, my = rng.uniform(0, W, n), rng.uniform(0, H, n)
+    ox, oy = (big % gx) * block, (big // gx) * block
+    mx[:3001] = ox + rng.uniform(-8, block + 8, 3001)
+    my[:3001] = oy + rng.uniform(-8, block + 8, 3001)
+    s1, s2 = rng.uniform(0.5, 6.0, n), rng.uniform(0.5, 6.0, n)
+    th = rng.uniform(0, math.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    cxx = c * c * s1 * s1 + s * s * s2 * s2 + 0.3
+    cyy = s * s * s1 * s1 + c * c * s2 * s2 + 0.3
+    cxy = c * s * (s1 * s1 - s2 * s2)
+    det = cxx * cyy - cxy * cxy
+    f = np.zeros((n, rasterize.NFEAT), np.float32)
+    f[:, rasterize.F_PX], f[:, rasterize.F_PY] = mx, my
+    f[:, rasterize.F_CA], f[:, rasterize.F_CB], f[:, rasterize.F_CC] = cyy / det, -cxy / det, cxx / det
+    f[:, rasterize.F_OP] = rng.uniform(0.02, 0.6, n)
+    f[:, rasterize.F_R:rasterize.F_IZ] = rng.uniform(0, 1, (n, 3))
+    f[:, rasterize.F_IZ] = rng.uniform(0.1, 1.0, n)
+    sx, sy = np.floor(mx / 16), np.floor(my / 16)
+    f[:, rasterize.F_X0] = sx - rng.integers(0, 2, n)
+    f[:, rasterize.F_X1] = sx + 1 + rng.integers(0, 2, n)
+    f[:, rasterize.F_Y0] = sy - rng.integers(0, 2, n)
+    f[:, rasterize.F_Y1] = sy + 1 + rng.integers(0, 2, n)
+    gauss = np.concatenate([rng.integers(3001, n, 37), rng.permutation(3001),
+                            rng.integers(0, n, 256)]).astype(np.int32)
+    total = int(counts.sum())
+    max_pairs = -(-total // 128) * 128
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    slot = rng.permutation(max_pairs)[:total].astype(np.int32)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return (cuda(f), cuda(gauss), cuda(slot), cuda(start), cuda(counts), gx,
+            max_pairs)
+
+
+@pytest.mark.parametrize("block", [16, 32])
+@pytest.mark.parametrize("early_stop", [False, True], ids=["no_stop", "early_stop"])
+def test_pair_kernels_on_uneven_tiles(scene, block, early_stop):
+    gfeat, gauss_s, slot_s, tile_start, tile_count, gx, max_pairs = _uneven_bins(block)
+    _check_pair_kernels(gfeat, gauss_s, slot_s, tile_start, tile_count, gx, block,
+                        max_pairs, early_stop, seed=4)

@@ -358,13 +358,19 @@ def segment_sum_plain(dpair: torch.Tensor, offsets: torch.Tensor,
 def segment_sum(dpair: torch.Tensor, offsets: torch.Tensor,
                 ntiles: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """K4 wrapper: launches ``csrc/segment_sum.cu`` on CUDA tensors, runs the
-    plain version on CPU tensors. Returns (N, NFEAT) f32."""
+    plain version on CPU tensors. Returns (N, NFEAT) f32.
+
+    The kernel takes ``offsets`` to be the exclusive cumsum of
+    ``ntiles[order]`` (as ``binning.build_sorted_bins`` makes it): rank j's
+    range ends where rank j + 1's starts, and only the last rank reads
+    ``ntiles``."""
     if dpair.device.type == "cpu":
         return segment_sum_plain(dpair, offsets, ntiles, order)
     dev = dpair.device
     _build.check_tensor(dpair, "dpair", torch.float32, dev)
-    if dpair.dim() != 2 or dpair.shape[1] != NGRAD:
-        raise ValueError(f"dpair must be (M, {NGRAD}), got {tuple(dpair.shape)}")
+    if dpair.dim() != 2 or dpair.shape[1] != NGRAD or dpair.data_ptr() % 16:
+        raise ValueError(f"dpair must be a 16-byte aligned (M, {NGRAD}) table, "
+                         f"got {tuple(dpair.shape)}")
     n = offsets.shape[0]
     for name, t in (("offsets", offsets), ("ntiles", ntiles), ("order", order)):
         _build.check_tensor(t, name, torch.int32, dev)

@@ -5,8 +5,8 @@ Gaussian window (sigma 1.5), C1 = 0.01^2, C2 = 0.03^2, zero padding, mean
 over pixels and channels. The five blurred quantities (x, y, x^2, y^2, xy of
 the centered images) are one 5C-channel VALID blur, K5
 (``csrc/blur.cu``); ``BlurValid`` is its autograd function, whose backward
-is the same blur of the cotangent zero-padded by 10 (the window is
-symmetric).
+is the same blur of the cotangent read with a zero margin of 10 (the window
+is symmetric), launched on the unpadded cotangent.
 """
 
 from __future__ import annotations
@@ -35,9 +35,13 @@ def gaussian_window(size: int = WINDOW, sigma: float = SIGMA) -> np.ndarray:
 TAPS = tuple(float(t) for t in gaussian_window())  # K5 holds them as literals
 
 
-def blur_valid_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K5: (C, Hp, Wp) -> (C, Hp - 10, Wp - 10),
-    vertical taps then horizontal, summed in tap order (K5's order)."""
+def blur_valid_plain(x: torch.Tensor, margin: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K5: (C, Hp, Wp) embedded in ``margin`` zeros
+    on every side, then blurred VALID -> (C, Hp + 2 margin - 10,
+    Wp + 2 margin - 10); vertical taps then horizontal, summed in tap order
+    (K5's order)."""
+    if margin:
+        x = F.pad(x, (margin,) * 4)
     h, w = x.shape[1] - HALO, x.shape[2] - HALO
     mid = x[:, 0:h] * TAPS[0]
     for k in range(1, WINDOW):
@@ -48,19 +52,23 @@ def blur_valid_plain(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def blur_valid(x: torch.Tensor) -> torch.Tensor:
+def blur_valid(x: torch.Tensor, margin: int = 0) -> torch.Tensor:
     """K5 wrapper: launches ``csrc/blur.cu`` on CUDA tensors, runs the plain
-    version on CPU tensors. (C, Hp, Wp) f32 -> (C, Hp - 10, Wp - 10)."""
+    version on CPU tensors. (C, Hp, Wp) f32 read with a zero margin of
+    ``margin`` -> (C, Hp + 2 margin - 10, Wp + 2 margin - 10); the margin is
+    never materialised on the card."""
     if x.device.type == "cpu":
-        return blur_valid_plain(x)
+        return blur_valid_plain(x, margin)
     _build.check_tensor(x, "x", torch.float32, x.device)
-    if x.dim() != 3 or x.shape[1] <= HALO or x.shape[2] <= HALO:
-        raise ValueError(f"x must be (C, Hp, Wp) with Hp, Wp > {HALO}, got {tuple(x.shape)}")
+    if x.dim() != 3 or margin < 0 or min(x.shape[1:]) + 2 * margin <= HALO:
+        raise ValueError(f"x must be (C, Hp, Wp) with Hp, Wp + 2 margin > {HALO}, "
+                         f"got {tuple(x.shape)} and margin {margin}")
     c, hp, wp = x.shape
-    out = torch.empty(c, hp - HALO, wp - HALO, dtype=torch.float32, device=x.device)
+    out = torch.empty(c, hp + 2 * margin - HALO, wp + 2 * margin - HALO,
+                      dtype=torch.float32, device=x.device)
     lib = _build.load("blur")
     p = _build.ptr
-    rc = lib.gs_blur_valid(p(x), p(out), c, hp, wp, _build.stream_of(out))
+    rc = lib.gs_blur_valid(p(x), p(out), c, hp, wp, margin, _build.stream_of(out))
     _build.check(lib, "blur", rc)
     return out
 
@@ -68,8 +76,8 @@ def blur_valid(x: torch.Tensor) -> torch.Tensor:
 class BlurValid(torch.autograd.Function):
     """VALID blur with K5 in both directions: the adjoint of a VALID
     correlation with a symmetric window is the same correlation of the
-    cotangent zero-padded by the halo. ``plain`` runs the plain version on
-    any device."""
+    cotangent read with a zero margin of the halo. ``plain`` runs the plain
+    version on any device."""
 
     @staticmethod
     def forward(ctx, x, plain):
@@ -78,8 +86,8 @@ class BlurValid(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        ctp = F.pad(ct, (HALO, HALO, HALO, HALO)).contiguous()
-        return (blur_valid_plain if ctx.plain else blur_valid)(ctp), None
+        blur = blur_valid_plain if ctx.plain else blur_valid
+        return blur(ct.contiguous(), HALO), None
 
 
 def ssim_stack(img1: torch.Tensor, img2: torch.Tensor):

@@ -6,10 +6,10 @@ and sorted bins exactly; K2 (``csrc/composite_fwd.cu``) must agree within
 column's largest magnitude (its per-pixel terms equal the plain version's;
 the sums over up to 1024 pixels run in another order and the position rows
 cancel); K4 (``csrc/segment_sum.cu``) within 1e-5 of each column's largest
-magnitude (sums of a few rows in another order); K5 (``csrc/blur.cu``)
-within 1e-6 of the largest output (both round every product and sum in the
-same order). These tests need an NVIDIA GPU and ``nvcc``; elsewhere they
-skip with a reason. On the card:
+magnitude (sums of a few rows in another order), and the same bits on a
+second run; K5 (``csrc/blur.cu``) bit-identical in both directions (both
+round every product and sum in the same order). These tests need an NVIDIA
+GPU and ``nvcc``; elsewhere they skip with a reason. On the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
@@ -194,12 +194,82 @@ def test_segment_sum_kernel_matches_plain(prep, max_pairs):
     before = _build.launches["segment_sum"]
     sk = rasterize.segment_sum(dpair, bins.offsets, bins.ntiles, bins.order)
     assert _build.launches["segment_sum"] == before + 1
+    again = rasterize.segment_sum(dpair, bins.offsets, bins.ntiles, bins.order)
     sp = rasterize.segment_sum_plain(dpair, bins.offsets, bins.ntiles, bins.order)
     torch.cuda.synchronize()
+    assert torch.equal(sk, again)
     assert sk.shape == (prep.depth.shape[0], rasterize.NFEAT)
     assert col_err(sk[:, :rasterize.NGRAD], sp[:, :rasterize.NGRAD]) <= 1e-5
     assert not sk[:, rasterize.NGRAD:].any()
     assert torch.equal(sk.abs().sum(1) == 0, sp.abs().sum(1) == 0)
+
+
+def segment_layout(n=3001, seed=0, long_rows=5000):
+    """A synthetic K4 input in numpy, (dpair, offsets, ntiles, order), with
+    ``offsets`` the exclusive cumsum of ``ntiles[order]``: one rank of
+    ``long_rows`` rows, ranks of 129-600 rows (summed by a whole block, some
+    over several chunks), one at the first and one at the last rank of a
+    256-rank block, runs of empty ranks, the budget M (odd, so 10 M floats
+    end mid-quad) cutting a rank in its middle, ranks past it; n is not a
+    multiple of 256."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(1, 5, n)  # in depth order
+    rows[rng.random(n) < 0.3] = 0
+    rows[300:340] = 0
+    rows[700:703] = 0
+    rows[rng.choice(n, 8, replace=False)] = rng.integers(129, 600, 8)
+    rows[512], rows[767], rows[1000] = 200, 130, long_rows
+    cut = n - 50 + int(np.argmax(rows[n - 50:] >= 3))
+    rows[cut] = max(rows[cut], 3)
+    offsets = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    max_pairs = int(offsets[cut]) + int(rows[cut]) // 2
+    max_pairs += 1 - max_pairs % 2
+    order = rng.permutation(n)
+    ntiles = np.empty(n, np.int64)
+    ntiles[order] = rows
+    dpair = rng.normal(size=(max_pairs, rasterize.NGRAD)).astype(np.float32)
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return dpair, i32(offsets), i32(ntiles), i32(order)
+
+
+def test_segment_sum_kernel_on_a_synthetic_layout():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    args = [torch.from_numpy(a).cuda() for a in segment_layout()]
+    sk = rasterize.segment_sum(*args)
+    again = rasterize.segment_sum(*args)
+    sp = rasterize.segment_sum_plain(*args)
+    torch.cuda.synchronize()
+    assert col_err(sk[:, :rasterize.NGRAD], sp[:, :rasterize.NGRAD]) <= 1e-5
+    assert not sk[:, rasterize.NGRAD:].any()
+    assert torch.equal(sk.abs().sum(1) == 0, sp.abs().sum(1) == 0)
+    assert int((sp.abs().sum(1) == 0).sum()) > 300  # empty and past-budget ranks
+    assert torch.equal(sk, again)
+
+
+# (C, Hp, Wp): output widths 1, 2 and 3 mod 4, several 500-column strips,
+# one output row (Hp = 11), a ragged last strip of rows
+BLUR_SHAPES = [(15, 40, 57), (3, 11, 532), (2, 136, 1035), (1, 300, 1118), (4, 11, 11)]
+
+
+@pytest.mark.parametrize("shape", BLUR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_blur_kernel_is_bit_identical_to_plain(shape):
+    """Forward on x and the VJP's launch on the unpadded cotangent (a zero
+    margin of 10) against the plain version, to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand(shape, device="cuda", generator=gen) * 2 - 1
+    c, hp, wp = shape
+    ct = torch.randn(c, hp - ssim.HALO, wp - ssim.HALO, device="cuda", generator=gen)
+    for inp, margin in ((x, 0), (ct, ssim.HALO)):
+        before = _build.launches["blur"]
+        yk = ssim.blur_valid(inp, margin)
+        assert _build.launches["blur"] == before + 1
+        yp = ssim.blur_valid_plain(inp, margin)
+        torch.cuda.synchronize()
+        assert yk.shape == yp.shape
+        assert torch.equal(yk, yp), float((yk - yp).abs().max())
 
 
 def test_blur_kernel_matches_plain_forward_and_vjp():
@@ -217,9 +287,8 @@ def test_blur_kernel_matches_plain_forward_and_vjp():
     (dxp,) = torch.autograd.grad(yp, xp, ct)
     torch.cuda.synchronize()
     assert y.shape == (15, 97, 131) and dx.shape == x.shape
-    y, yp = y.detach(), yp.detach()
-    assert float((y - yp).abs().max()) <= 1e-6 * float(yp.abs().max())
-    assert float((dx - dxp).abs().max()) <= 1e-6 * float(dxp.abs().max())
+    assert torch.equal(y.detach(), yp.detach())
+    assert torch.equal(dx, dxp)
 
 
 @pytest.mark.parametrize("block", [16, 32])

@@ -35,6 +35,7 @@ from gaussian_splatting_lightning_tpu_torch.ops import rasterize as trast
 from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
 from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize
 from gaussian_splatting_lightning_tpu_torch.training import trainer as ttrainer
+from tests.test_torch_cuda_kernels import segment_layout
 from tests.torch_parity import (
     BG,
     cameras,
@@ -243,3 +244,26 @@ def test_segment_sum_plain_sums_each_splats_slot_range():
     assert not out[0].any()
     assert torch.equal(out[1, :10], dpair[3:6].sum(0))  # 5 slots, 3 inside the budget
     assert not out[:, 10:].any()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_segment_sum_plain_matches_a_loop_over_segments(seed):
+    """K4's plain version on the synthetic layout the card tests give K4 (a
+    5000-row rank, runs of empty ranks, a rank cut by the budget, ranks past
+    it) against a numpy loop over the ranks in float64: the same zero rows,
+    and within 1e-5 of each column's largest sum (f32 sums of up to 5000
+    rows)."""
+    dpair, offsets, ntiles, order = segment_layout(n=1500 + 7 * seed, seed=seed)
+    n, max_pairs = offsets.shape[0], dpair.shape[0]
+    want = np.zeros((n, trast.NFEAT))
+    for j in range(n):
+        lo = offsets[j]
+        hi = min(lo + ntiles[order[j]], max_pairs)
+        want[order[j], :trast.NGRAD] = dpair[lo:hi].astype(np.float64).sum(0)
+    got = trast.segment_sum_plain(*(torch.from_numpy(a) for a in
+                                    (dpair, offsets, ntiles, order))).numpy()
+    assert got.shape == want.shape
+    assert np.array_equal(got == 0, want == 0)
+    assert (np.abs(want).sum(1) == 0).sum() > 100
+    scale = np.abs(want[:, :trast.NGRAD]).max(0)
+    assert (np.abs(got - want)[:, :trast.NGRAD].max(0) / scale).max() <= 1e-5

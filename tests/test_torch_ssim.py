@@ -57,6 +57,25 @@ def test_blur_forward_and_vjp_match_jax(jax_blur):
     assert torch.equal(ty, tssim.blur_valid(tx))  # CPU tensors take the plain version
 
 
+@pytest.mark.parametrize("shape", [(15, 11, 57), (3, 23, 18), (2, 37, 31), (1, 11, 11)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_blur_margin_equals_padding_then_blur(shape):
+    """The plain blur read with a zero margin of 10 (the VJP's route) equals
+    the blur of the cotangent zero-padded by 10 in memory, to the bit, and
+    so does ``BlurValid``'s backward; widths 1, 2 and 3 mod 4 and one-row
+    inputs."""
+    ct = RNG.normal(size=shape).astype(np.float32)
+    padded = np.zeros((shape[0], shape[1] + 20, shape[2] + 20), np.float32)
+    padded[:, 10:-10, 10:-10] = ct
+    want = tssim.blur_valid_plain(torch.from_numpy(padded))
+    got = tssim.blur_valid_plain(torch.from_numpy(ct), tssim.HALO)
+    assert got.shape == (shape[0], shape[1] + 10, shape[2] + 10)
+    assert torch.equal(got, want)
+    x = torch.zeros(got.shape, requires_grad=True)
+    tssim.BlurValid.apply(x, False).backward(torch.from_numpy(ct))
+    assert torch.equal(x.grad, want)
+
+
 def test_taps_are_the_jax_window():
     np.testing.assert_array_equal(np.asarray(tssim.TAPS, np.float32),
                                   jssim._gaussian_window(11, 1.5))

@@ -385,7 +385,10 @@ def phase3():
     k1_args = (inp, m, ctx["gx"], ctx["n_tiles"], 0, blk)
     k1_ms = cuda_time_ms(lambda: expand_pairs(*k1_args), 20)
     k1_plain_ms = cuda_time_ms(lambda: expand_pairs_plain(*k1_args), 5)
-    k1_bytes = ctx["n"] * 4 * 8 + 4 + m * 4 * 2
+    # K1 reads each of its inputs once: per splat its offset, its order entry,
+    # its row (x0, nx, y0, cull_r2) and its mean (4 + 4 + 16 + 8 bytes), and
+    # the total (4 bytes); it writes each slot's key and gauss id (8 bytes)
+    k1_bytes = sum(t.numel() * t.element_size() for t in inp) + m * 4 * 2
     k2_ms = cuda_time_ms(lambda: rasterize.composite_fwd(*ctx["args"]), 10)
     k2_plain_ms = cuda_time_ms(lambda: rasterize.composite_fwd_plain(*ctx["args"]), 1)
     binned = int(ctx["bins"].tile_count.sum())
@@ -418,6 +421,8 @@ def phase3():
         "preprocess": cuda_time_ms(lambda: _prep(scene, cams[0], w, h), 10),
         "build_sorted_bins": cuda_time_ms(
             lambda: binning.build_sorted_bins(prep, gx, gy, m, block=blk), 10),
+        "expand_inputs (inside build_sorted_bins)": cuda_time_ms(
+            lambda: binning.expand_inputs(prep, gx, gy, 0, gy, blk), 10),
         "expand_pairs (K1, inside build_sorted_bins)": k1_ms,
         "feature_table": cuda_time_ms(
             lambda: rasterize.feature_table(prep, w, h, blk), 10),
@@ -426,6 +431,10 @@ def phase3():
     print("stages_ms: " + json.dumps(stages), flush=True)
     profile_render(lambda: render_scene(scene, cams[0], w, h, bg, tiling),
                    stages["render_scene"])
+    # K1's inputs alone: the device time of the tile rects and rows, the depth
+    # sort and the slot offsets, apart from the host's launch gaps that the events include
+    profile_render(lambda: binning.expand_inputs(prep, gx, gy, 0, gy, blk),
+                   stages["expand_inputs (inside build_sorted_bins)"], unit="expand_inputs")
     return scene, budget, [
         {"name": "expand_pairs", "route": "cuda",
          "source": f"{PKG}/csrc/expand_pairs.cu",
@@ -433,6 +442,8 @@ def phase3():
          "launches": launches["expand_pairs"], "max_abs_err": float(k1),
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         # no one PyTorch call computes the culled tile key of a slot:
+         # torch.repeat_interleave gives only its owner
          "library_ms": None},
         {"name": "composite_fwd", "route": "cuda",
          "source": f"{PKG}/csrc/composite_fwd.cu",

@@ -9,7 +9,8 @@ Counterpart of ``gaussian_splatting_lightning_tpu/ops/binning.py``
 2. Expand (splat, tile) pairs into a static budget of ``max_pairs`` slots
    (kernel K1, ``csrc/expand_pairs.cu``), each slot independently, with the
    exact per-tile ellipse cull. Slots past the budget are never generated,
-   so on overflow the *farthest* splats drop first.
+   so on overflow the *farthest* splats drop first. K1 gathers each
+   owner's fields by the depth order itself, once per owner.
 3. One stable sort by tile key groups pairs per tile in depth order.
 4. Tile ranges come from T+1 searchsorted queries over the sorted keys.
 
@@ -34,17 +35,23 @@ from gaussian_splatting_lightning_tpu_torch.ops.common import (
 CHUNK = 128  # the JAX compositor's window alignment; kept for astart/phase
 
 
-class ExpandInputs(NamedTuple):
-    """Depth-sorted per-splat fields consumed by K1 (all (N,))."""
+# columns of K1's per-splat row, (N, ROW) int32 in original splat order;
+# CULL_R2 holds the bits of an f32 (``.view(torch.float32)`` reads it back)
+X0, NX, Y0, CULL_R2 = range(4)
+ROW = 4
 
-    offsets: torch.Tensor  # int32 exclusive prefix sum of ntiles_s
-    x0: torch.Tensor  # int32 first tile column
-    nx: torch.Tensor  # int32 max(rect width, 1)
-    y0: torch.Tensor  # int32 first tile row, band-local
-    px: torch.Tensor  # f32 pixel-space mean x
-    py: torch.Tensor  # f32 pixel-space mean y
-    cull_r2: torch.Tensor  # f32 exact-cull squared radius
-    orig: torch.Tensor  # int32 original splat id (the depth permutation)
+
+class ExpandInputs(NamedTuple):
+    """K1's inputs: the slot starts, the depth order and the per-splat fields
+    K1 reads, in original splat order. Depth rank g's fields are those of
+    splat ``order[g]``."""
+
+    offsets: torch.Tensor  # (N,) int32 exclusive prefix sum of ntiles[order]
+    order: torch.Tensor  # (N,) int32 depth permutation (original splat ids)
+    rows: torch.Tensor  # (N, ROW) int32: first tile column, rect width in
+    #   tiles, first tile row (band-local), the bits of the exact-cull
+    #   squared radius
+    p_pix: torch.Tensor  # (N, 2) f32 pixel-space mean
     total: torch.Tensor  # () int32 rect pair count over all splats
 
 
@@ -78,13 +85,26 @@ def expand_inputs(
     prep: Preprocessed, grid_x: int, grid_y: int, tile_y_offset: int,
     grid_y_local: int, block: int,
 ) -> tuple[ExpandInputs, torch.Tensor]:
-    """K1's inputs from ``prep``, plus ``ntiles`` in original order."""
+    """K1's inputs from ``prep``, plus ``ntiles`` in original order.
+
+    The JAX package's ``_expand_keys`` stacks K1's fields into one table and
+    gathers its rows by ``order``. Here nx and y0 are written into their
+    column of one (N, ROW) row table by the op that computes them, x0 and
+    the cull radius by one copy each (a ``stack`` of the columns took longer
+    than K1 on the H100; ``PERF.md`` §6), and K1 gathers each owner's row
+    and mean by ``order`` itself as it stages a block's owners: only
+    ``ntiles`` is gathered here, for the slot starts.
+    """
+    p_pix = prep.p_pix.detach()
     x0, y0g, x1, y1g = tf.tile_rect(
-        prep.p_pix.detach(), prep.radius_bin.detach(), grid_x, grid_y, block, block
+        p_pix, prep.radius_bin.detach(), grid_x, grid_y, block, block
     )
-    y0 = torch.clamp(y0g - tile_y_offset, 0, grid_y_local)
+    rows = torch.empty((x0.shape[0], ROW), dtype=torch.int32, device=x0.device)
+    rows[:, X0] = x0
+    rows[:, CULL_R2] = prep.cull_r2.detach().view(torch.int32)
+    y0 = torch.clamp(y0g - tile_y_offset, 0, grid_y_local, out=rows[:, Y0])
     y1 = torch.clamp(y1g - tile_y_offset, 0, grid_y_local)
-    nx = torch.clamp_min(x1 - x0, 0)
+    nx = torch.clamp_min(x1 - x0, 0, out=rows[:, NX])
     ny = torch.clamp_min(y1 - y0, 0)
     ntiles = torch.where(prep.visible, nx * ny, torch.zeros_like(nx)).to(torch.int32)
 
@@ -92,23 +112,11 @@ def expand_inputs(
     live = prep.visible & (ntiles > 0)
     depth_key = torch.where(live, prep.depth.detach(),
                             torch.full_like(prep.depth, float("inf")))
-    order = torch.argsort(depth_key, stable=True)
+    order = torch.argsort(depth_key, stable=True).to(torch.int32)
     ntiles_s = ntiles[order]
     offsets = torch.cumsum(ntiles_s, 0, dtype=torch.int32) - ntiles_s
     total = offsets[-1] + ntiles_s[-1]
-    p_pix = prep.p_pix.detach()
-    inputs = ExpandInputs(
-        offsets=offsets.contiguous(),
-        x0=x0[order].contiguous(),
-        nx=torch.clamp_min(nx, 1)[order].contiguous(),
-        y0=y0[order].contiguous(),
-        px=p_pix[:, 0][order].contiguous(),
-        py=p_pix[:, 1][order].contiguous(),
-        cull_r2=prep.cull_r2.detach()[order].contiguous(),
-        orig=order.to(torch.int32),
-        total=total,
-    )
-    return inputs, ntiles
+    return ExpandInputs(offsets, order, rows, p_pix, total), ntiles
 
 
 def expand_pairs_plain(
@@ -119,21 +127,26 @@ def expand_pairs_plain(
     n = inp.offsets.shape[0]
     slot = torch.arange(max_pairs, dtype=torch.int32, device=inp.offsets.device)
     g = torch.clamp(torch.searchsorted(inp.offsets, slot, right=True) - 1, 0, n - 1)
+    src = inp.order[g]
+    row_g = inp.rows[src]
     local = slot - inp.offsets[g]
-    w = inp.nx[g]
+    # a slot's owner has a tile, so nx >= 1; the clamp only keeps the
+    # division defined for the padding past ``total``
+    w = torch.clamp_min(row_g[:, NX], 1)
     row = torch.div(local, w, rounding_mode="floor")
-    tx = inp.x0[g] + local - row * w
-    ty = inp.y0[g] + row
+    tx = row_g[:, X0] + local - row * w
+    ty = row_g[:, Y0] + row
     gx0 = (tx * block).to(torch.float32)
     gy0 = ((ty + tile_y_offset) * block).to(torch.float32)
-    mx, my = inp.px[g], inp.py[g]
+    p = inp.p_pix[src]
+    mx, my = p[:, 0], p[:, 1]
     dx = torch.clamp_min(torch.maximum(gx0 - mx, mx - (gx0 + (block - 1))), 0.0)
     dy = torch.clamp_min(torch.maximum(gy0 - my, my - (gy0 + (block - 1))), 0.0)
-    keep = dx * dx + dy * dy <= inp.cull_r2[g]
+    keep = dx * dx + dy * dy <= row_g[:, CULL_R2].view(torch.float32)
     valid = slot < inp.total
     n_tiles_t = torch.full_like(slot, n_tiles)
     key = torch.where(valid & keep, ty * grid_x + tx, n_tiles_t)
-    gauss = torch.where(valid, inp.orig[g], torch.zeros_like(slot))
+    gauss = torch.where(valid, src, torch.zeros_like(slot))
     return key, gauss
 
 
@@ -142,26 +155,38 @@ def expand_pairs(
     tile_y_offset: int = 0, block: int = BLOCK_X,
 ):
     """K1 wrapper: launches ``csrc/expand_pairs.cu`` on CUDA tensors, runs the
-    plain version on CPU tensors."""
+    plain version on CPU tensors.
+
+    Precondition, as ``expand_inputs`` makes it: ``offsets`` is the exclusive
+    cumsum of ``ntiles[order]`` (so it never decreases), ``total`` its sum,
+    ``order`` a permutation of the splats, and a splat with a tile has a
+    rect width ``rows[:, NX] >= 1``. The kernel stages each block's owner
+    window in shared memory; a window too wide for that (zero-tile splats
+    inside the live prefix, which ``expand_inputs`` never makes) takes a
+    slower path in the kernel that is just as exact.
+    """
     if inp.offsets.device.type == "cpu":
         return expand_pairs_plain(inp, max_pairs, grid_x, n_tiles,
                                   tile_y_offset, block)
     dev = inp.offsets.device
-    for name in ("offsets", "x0", "nx", "y0", "orig", "total"):
-        _build.check_tensor(getattr(inp, name), name, torch.int32, dev)
-    for name in ("px", "py", "cull_r2"):
-        _build.check_tensor(getattr(inp, name), name, torch.float32, dev)
+    for name in ExpandInputs._fields:
+        dtype = torch.float32 if name == "p_pix" else torch.int32
+        _build.check_tensor(getattr(inp, name), name, dtype, dev)
     n = inp.offsets.shape[0]
-    if any(getattr(inp, f).shape != (n,) for f in ExpandInputs._fields[:-1]):
-        raise ValueError("expand_pairs: per-splat fields must all be (N,)")
-    key = torch.empty(max_pairs, dtype=torch.int32, device=inp.offsets.device)
+    shapes = tuple(tuple(t.shape) for t in inp)
+    if n == 0 or shapes != ((n,), (n,), (n, ROW), (n, 2), ()):
+        raise ValueError(f"expand_pairs: need offsets, order (N,), rows (N, {ROW}), "
+                         f"p_pix (N, 2) and total () with N > 0, got {shapes}")
+    if inp.rows.data_ptr() % 16 or inp.p_pix.data_ptr() % 8:
+        raise ValueError("expand_pairs: rows and p_pix must start on a 16- and an "
+                         "8-byte boundary")
+    key = torch.empty(max_pairs, dtype=torch.int32, device=dev)
     gauss = torch.empty_like(key)
     lib = _build.load("expand_pairs")
     p = _build.ptr
     rc = lib.gs_expand_pairs(
-        p(inp.offsets), p(inp.x0), p(inp.nx), p(inp.y0), p(inp.px), p(inp.py),
-        p(inp.cull_r2), p(inp.orig), p(inp.total), n, max_pairs, grid_x,
-        n_tiles, block, tile_y_offset, p(key), p(gauss), _build.stream_of(key),
+        *(p(t) for t in inp), n, max_pairs, grid_x, n_tiles, block, tile_y_offset,
+        p(key), p(gauss), _build.stream_of(key),
     )
     _build.check(lib, "expand_pairs", rc)
     return key, gauss
@@ -214,5 +239,5 @@ def build_sorted_bins(
         num_dropped=torch.clamp_min(inp.total - max_pairs, 0),
         ntiles=ntiles,
         offsets=inp.offsets,
-        order=inp.orig,
+        order=inp.order,
     )

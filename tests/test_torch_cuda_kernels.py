@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 (``csrc/expand_pairs.cu``) must give the plain version's ``(key, gauss)``
-and sorted bins exactly; K2 (``csrc/composite_fwd.cu``) must agree within
+and sorted bins exactly, also on synthetic layouts at the edges of its
+1024-slot runs; K2 (``csrc/composite_fwd.cu``) must agree within
 1e-4 max-abs. K3 (``csrc/composite_bwd.cu``) within 1e-4 of each gradient
 column's largest magnitude (its per-pixel terms equal the plain version's;
 the sums over up to 1024 pixels run in another order and the position rows
@@ -32,6 +33,9 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
 from gaussian_splatting_lightning_tpu_torch.ops import _build, binning, rasterize, ssim
 from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig, preprocess
 from gaussian_splatting_lightning_tpu_torch.training import trainer
+# pytest puts tests/ on sys.path; a package named "tests" elsewhere on the
+# path may shadow this directory's as a package
+from torch_expand_layouts import EXPAND_LAYOUTS, GX, GY, expand_case
 
 pytestmark = pytest.mark.cuda
 
@@ -99,18 +103,26 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + list(EXPAND_LAYOUTS))
 def test_expand_pairs_kernel_is_exact(prep, case):
-    blk, max_pairs, tyoff, gyl = CASES[case]
-    gx, gy = binning.grid_shape(W, H, blk, blk)
-    n_tiles = gx * (gyl or gy)
-    inp, _ = binning.expand_inputs(prep, gx, gy, tyoff, gyl or gy, blk)
+    if case in CASES:
+        blk, max_pairs, tyoff, gyl = CASES[case]
+        gx, gy = binning.grid_shape(W, H, blk, blk)
+        n_tiles = gx * (gyl or gy)
+        inp, _ = binning.expand_inputs(prep, gx, gy, tyoff, gyl or gy, blk)
+    else:
+        *arrays, max_pairs = expand_case(case)
+        inp = binning.ExpandInputs(*(torch.from_numpy(a).cuda() for a in arrays))
+        blk, gx, n_tiles, tyoff = 32, GX, GX * GY, 0
     before = _build.launches["expand_pairs"]
     key, gauss = binning.expand_pairs(inp, max_pairs, gx, n_tiles, tyoff, blk)
     assert _build.launches["expand_pairs"] == before + 1
     key_p, gauss_p = binning.expand_pairs_plain(inp, max_pairs, gx, n_tiles, tyoff, blk)
     torch.cuda.synchronize()
+    assert key.shape == (max_pairs,)
     assert torch.equal(key, key_p) and torch.equal(gauss, gauss_p)
+    if case not in CASES:
+        return
 
     bins = binning.build_sorted_bins(prep, gx, gy, max_pairs, tyoff, gyl, block=blk)
     plain = binning.build_sorted_bins(prep, gx, gy, max_pairs, tyoff, gyl, block=blk,
@@ -164,6 +176,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(prep):
         rasterize.segment_sum(dpair, bins.offsets.long(), bins.ntiles, bins.order)
     with pytest.raises(ValueError):  # float64 blur input
         ssim.blur_valid(torch.zeros(2, 20, 20, device="cuda", dtype=torch.float64))
+    inp, _ = binning.expand_inputs(prep, gx, gy, 0, gy, 32)
+    with pytest.raises(ValueError):  # a row of three columns
+        binning.expand_pairs(inp._replace(rows=inp.rows[:, :3].contiguous()),
+                             MAX_PAIRS, gx, gx * gy, 0, 32)
+    with pytest.raises(ValueError):  # int64 offsets
+        binning.expand_pairs(inp._replace(offsets=inp.offsets.long()),
+                             MAX_PAIRS, gx, gx * gy, 0, 32)
 
 
 @pytest.mark.parametrize("block", [16, 32])

@@ -18,7 +18,8 @@ PORT = "gaussian_splatting_lightning_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "gaussian_splatting_lightning_tpu", "__graft_entry__"}
 # the kernel tests run on the machine with the card, which has no JAX
 FILES = sorted((ROOT / PORT).rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda_kernels.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda_kernels.py",
+    ROOT / "tests" / "torch_expand_layouts.py"]
 
 
 def imported_modules(path: Path):

@@ -29,7 +29,23 @@ Phases (any failure exits non-zero):
      bit in both directions, its VJP launched on the unpadded cotangent as
      ``BlurValid.backward`` does) and timed on the bench step's own inputs,
      beside one-call library equivalents; ``train_stages_ms`` splits the
-     step and a profile line gives its device idle share.
+     step and a profile line gives its device idle share. Each step's host
+     syncs are counted (``torch.cuda.set_sync_debug_mode("warn")``).
+  6. the training loop through the train CLI at 1920x1080, the operating
+     point of ``configs/rehearsal_synthetic.yaml`` with its depth cut
+     (``LOOP_SETS``): 24 orbit views of an 80k-splat GT scene rendered by
+     the port, a COLMAP model with 20k noisy GT points, 600 steps with
+     densify events at 200, 300 and 400, an opacity reset at 300, SH
+     warm-up, validation and checkpoints at 300, and a start pair budget of
+     half the init scene's estimate. Run 1 calls the CLI's ``main``
+     in-process (step and event timers, host syncs, 20 steps profiled); run
+     2 resumes its step-300 checkpoint through the module entry in a
+     subprocess and must log the same losses. A ``train_loop:`` line holds
+     the numbers; checks: finite losses, a budget growth and 0 dropped pairs
+     at the last check, splats added at step 200, SH degree 3 in the final
+     checkpoint, held-out PSNR 1 dB above the init scene's, steps on no
+     cadence syncing no more often than phase 5's bare step, every kernel
+     launched.
 
 The card's name and power limit come two lines before the last, the
 kernels' JSON record (``max_abs_err`` is the largest |kernel - plain| over
@@ -39,6 +55,9 @@ last, and ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import os
@@ -108,6 +127,28 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Record the host syncs of the CUDA work inside the block: under
+    ``torch.cuda.set_sync_debug_mode("warn")`` each one warns. Yields the
+    list of caught warnings; ``n_syncs`` counts the syncs among them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def n_syncs(caught) -> int:
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def profile_render(render, wall_ms: float, reps: int = 5, unit: str = "render") -> None:
@@ -274,12 +315,13 @@ def phase2():
         {"launches": dict(_build.launches), "checks": rows}), flush=True)
 
 
-def orbit_cameras(w, h):
-    """The bench camera and three views on its orbit around the origin."""
-    import numpy as np
+ORBIT = ((35.0, 0.0), (-60.0, 15.0), (150.0, -20.0))  # phase 3's three views
 
-    from gaussian_splatting_lightning_tpu_torch import interop
-    from gaussian_splatting_lightning_tpu_torch.core.camera import make_camera
+
+def orbit_poses(angles=ORBIT):
+    """(3, 4) world-to-camera poses 4 units from the origin, looking at it:
+    the bench camera's (identity rotation) and one per (yaw, pitch)."""
+    import numpy as np
 
     def rot(yaw, pitch):
         a, b = math.radians(yaw), math.radians(pitch)
@@ -289,13 +331,17 @@ def orbit_cameras(w, h):
                        [0, math.sin(b), math.cos(b)]])
         return rx @ ry
 
+    t = np.array([[0.0], [0.0], [4.0]])
+    return [np.concatenate([np.eye(3), t], 1)] + [
+        np.concatenate([rot(yaw, pitch), t], 1) for yaw, pitch in angles]
+
+
+def orbit_cameras(w, h, angles=ORBIT):
+    """The bench camera (``interop.camera``) and the views on its orbit."""
+    from gaussian_splatting_lightning_tpu_torch.core.camera import make_camera
+
     focal = w * 0.7
-    t = np.array([[0.0], [0.0], [4.0]])  # 4 units from the origin, looking at it
-    views = [interop.camera(w, h)]
-    for yaw, pitch in ((35.0, 0.0), (-60.0, 15.0), (150.0, -20.0)):
-        views.append(make_camera(np.concatenate([rot(yaw, pitch), t], 1),
-                                 focal, focal, w, h))
-    return views
+    return [make_camera(pose, focal, focal, w, h) for pose in orbit_poses(angles)]
 
 
 def phase3():
@@ -596,19 +642,22 @@ def phase5(scene, budget):
     expected = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
                 "segment_sum": 1, "blur": 2}
     _build.reset_launch_counts()
-    step_ms = []
+    step_ms, step_syncs = [], []
     for _ in range(TRAIN_STEPS):
         before = dict(_build.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logs = one_step()
+        with count_syncs() as caught:
+            logs = one_step()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         step_ms.append(ms)
+        step_syncs.append(n_syncs(caught))
         launched = {k: _build.launches[k] - before[k] for k in before}
         row = {"step": state["step"] - 1, "ms": ms, "loss": float(logs["loss"]),
                "psnr": float(logs["psnr"]), "num_pairs": int(logs["num_pairs"]),
-               "dropped": int(logs["num_dropped_pairs"]), "launches": launched}
+               "dropped": int(logs["num_dropped_pairs"]), "host_syncs": step_syncs[-1],
+               "launches": launched}
         print("train_step: " + json.dumps(row), flush=True)
         if not math.isfinite(row["loss"]):
             fail(f"train step {row['step']}: loss {row['loss']}")
@@ -790,7 +839,7 @@ def phase5(scene, budget):
         dict(stages, step_wall_ms_median=wall, step_wall_ms=step_ms)), flush=True)
     del fwd_out, loss, grads, pgrads, leaves, live
     profile_render(one_step, wall, reps=3, unit="step")
-    return [
+    return max(step_syncs), [
         {"name": "composite_bwd", "route": "cuda",
          "source": f"{PKG}/csrc/composite_bwd.cu",
          "replaces": "gaussian_splatting_lightning_tpu/ops/rasterize_pallas.py:228",
@@ -815,6 +864,295 @@ def phase5(scene, budget):
     ]
 
 
+# phase 6: configs/rehearsal_synthetic.yaml's operating point, depth cut
+# (PERF.md section 4); widths are not cut: 1080p, SH degree 3, 24 views
+LOOP_VIEWS, LOOP_GT, LOOP_INIT = 24, 80_000, 20_000
+LOOP_SETS = {
+    "train.num_iters": 600,
+    "train.densify.densify_since": 100,
+    "train.densify.densify_interval": 100,
+    "train.densify.densify_until": 500,
+    "train.densify.opacity_reset_interval": 300,
+    "train.densify.sh_degree_step_interval": 100,
+    "train.valid_interval": 300,
+    "train.checkpoint_interval": 300,
+    "train.log_interval": 50,
+    "train.overflow_check_interval": 50,
+}
+LOOP_PROFILE = (160, 180)  # steps profiled: on no cadence
+LOOP_LOSS_TOL = 1e-6  # run 2 (resumed at step 300) against run 1
+
+
+class Tee(io.TextIOBase):
+    """stdout that also keeps what was written."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        self.parts.append(text)
+        return len(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def write_loop_scene(root, w, h):
+    """The GT scene's 24 views rendered by the port as PNGs, and a COLMAP
+    model: the orbit poses and 20,000 GT centres plus noise with the GT
+    colours."""
+    import numpy as np
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.core.sh import SH_C0
+    from gaussian_splatting_lightning_tpu_torch.data import colmap, image_io
+    from gaussian_splatting_lightning_tpu_torch.ops.budget import pair_budget
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
+
+    angles = [(15.0 * k, 10.0 * math.sin(k)) for k in range(1, LOOP_VIEWS)]
+    poses, cams = orbit_poses(angles), orbit_cameras(w, h, angles)
+    # splat scales around 0.01 (3-sigma radii ~10 px at 1080p): at 0.02 and
+    # at the fixture's default 0.05 the splats overlap so much that the init
+    # scene is near the best held-out fit 20k splats reach, and 600 steps
+    # fit the train views past it (PERF.md section 6)
+    gt = interop.synthetic_scene(LOOP_GT, LOOP_GT, sh_degree=3, aniso=True, seed=6,
+                                 scale=0.01)
+    tiling = TilingConfig(max_pairs=pair_budget(gt, cams, w, h))
+    (root / "images").mkdir(parents=True)
+    images = {}
+    for i, (pose, cam) in enumerate(zip(poses, cams)):
+        out, stats = render_scene(gt, cam, w, h, torch.zeros(3, device="cuda"), tiling)
+        if int(stats["num_dropped_pairs"]):
+            fail(f"phase 6: GT view {i} dropped pairs")
+        img = (out.image.clamp(0, 1).permute(1, 2, 0) * 255 + 0.5).to(torch.uint8)
+        name = f"view_{i:03d}.png"
+        image_io.write_image(root / "images" / name, img.cpu().numpy())
+        images[i + 1] = (colmap.rotmat_to_qvec(pose[:, :3]), pose[:, 3], 1, name)
+    rng = np.random.default_rng(8)
+    pick = torch.from_numpy(rng.choice(LOOP_GT, LOOP_INIT, replace=False)).cuda()
+    xyz = (gt.params.xyz[pick].cpu().numpy()
+           + rng.normal(size=(LOOP_INIT, 3)).astype(np.float32) * 0.02)
+    rgb = np.clip(gt.params.features_dc[pick, 0].cpu().numpy() * SH_C0 + 0.5, 0, 1)
+    focal = w * 0.7
+    colmap.write_reconstruction(root / "sparse" / "0", {1: (w, h, focal, focal, w / 2, h / 2)},
+                                images, xyz, rgb)
+    return tiling.max_pairs
+
+
+def phase6(bare_step_syncs: int):
+    """The training loop through the train CLI at 1080p. Run 1 calls the
+    CLI's ``main`` in-process with timers on the step and the events, the
+    host syncs counted and 20 steps profiled; run 2 resumes run 1's step-300
+    checkpoint through the module entry in a subprocess and must log run 1's
+    losses. Returns run 1's kernel launches."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussian_splatting_lightning_tpu_torch.core.camera import camera_from_matrices
+    from gaussian_splatting_lightning_tpu_torch.models import from_points
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.ops.budget import pair_budget
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
+    from gaussian_splatting_lightning_tpu_torch.training import trainer as tr
+    from gaussian_splatting_lightning_tpu_torch.training.config import load_config
+
+    t_phase = time.perf_counter()
+    w, h = 1920, 1080
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "scene"
+        gt_budget = write_loop_scene(root, w, h)
+        config = ROOT / "configs" / "rehearsal_synthetic.yaml"
+        sets = dict(LOOP_SETS, **{"data.colmap_path": str(root),
+                                  "data.image_folder": str(root / "images")})
+        cfg = load_config(str(config), [f"{k}={v}" for k, v in sets.items()])
+        train_views, valid_views, xyz, rgb, _ = train_cli.load_views(cfg.data)
+        init = from_points(xyz, rgb, capacity=len(xyz), sh_degree=cfg.sh_degree)
+
+        def cams(views):
+            return [camera_from_matrices(v.viewmatrix, v.projmatrix, v.campos, v.tanfovx,
+                                         v.tanfovy) for v in views]
+
+        est = pair_budget(init, cams(train_views), w, h)
+        sets["train.tiling.max_pairs"] = max(8192, round(est / 2 / 8192) * 8192)
+        # the init scene's held-out PSNR, as the trainer's validate measures it
+        ev = tr.make_eval_step(dataclasses.replace(cfg.train, tiling=TilingConfig(
+            max_pairs=pair_budget(init, cams(valid_views), w, h))), w, h)
+        init_psnr = []
+        for v, cam in zip(valid_views, cams(valid_views)):
+            _, _, logs = ev(init, cam, torch.from_numpy(v.image).cuda(),
+                            torch.from_numpy(v.background).cuda())
+            if int(logs["num_dropped_pairs"]):
+                fail("phase 6: the init scene's held-out render dropped pairs")
+            init_psnr.append(float(logs["psnr"]))
+        init_psnr = float(np.mean(init_psnr))
+        del init, ev
+        argv = ["-c", str(config), "--out-dir", str(Path(tmp) / "runs"), "--device", "cuda"]
+        for k, v in sets.items():
+            argv += ["--set", f"{k}={v}"]
+        print(f"loop scene: {LOOP_GT} GT splats, {len(train_views)} train / "
+              f"{len(valid_views)} held-out views at {w}x{h}, {len(xyz)} init points, "
+              f"GT pair budget {gt_budget}, init estimate {est}, start budget "
+              f"{sets['train.tiling.max_pairs']}, init held-out PSNR {init_psnr:.3f}",
+              flush=True)
+        del train_views, valid_views
+
+        # ---- run 1: the CLI in-process, instrumented -------------------
+        rec = {"calls": {}, "events": [], "budget_at_save": {}, "last": -1, "prof": []}
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+        def make_timed(*a, **k):
+            step_fn = orig["make_train_step"](*a, **k)
+
+            def timed(scene, adam, step, *rest, **kw):
+                if step in LOOP_PROFILE and len(rec["prof"]) < 2:
+                    torch.cuda.synchronize()
+                    rec["prof"].append(time.perf_counter())
+                    (prof.start if len(rec["prof"]) == 1 else prof.stop)()
+                rec["calls"].setdefault(step, (time.perf_counter(), len(caught)))
+                rec["last"] = step
+                return step_fn(scene, adam, step, *rest, **kw)
+
+            return timed
+
+        def timed(name, fn, method=False):
+            def wrapped(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                step = a[0].step if method else rec["last"] + 1
+                rec["events"].append({"event": name, "step": step,
+                                      "ms": (time.perf_counter() - t0) * 1e3})
+                if name == "densify_and_prune":
+                    rec["events"][-1]["stats"] = {k: int(v) for k, v in out[2].items()}
+                if name == "save_checkpoint":
+                    rec["budget_at_save"][step] = a[0].cfg.tiling.max_pairs
+                return out
+
+            return wrapped
+
+        orig = {"make_train_step": tr.make_train_step, "densify_step": tr.densify_step,
+                "opacity_reset_step": tr.opacity_reset_step,
+                "validate": tr.Trainer.validate, "save_checkpoint": tr.Trainer.save_checkpoint}
+        tr.make_train_step = make_timed
+        tr.densify_step = timed("densify_and_prune", orig["densify_step"])
+        tr.opacity_reset_step = timed("reset_opacity", orig["opacity_reset_step"])
+        tr.Trainer.validate = timed("validate", orig["validate"], method=True)
+        tr.Trainer.save_checkpoint = timed("save_checkpoint", orig["save_checkpoint"],
+                                           method=True)
+        tee = Tee()
+        _build.reset_launch_counts()
+        t_run1 = time.perf_counter()
+        try:
+            with count_syncs() as caught, contextlib.redirect_stdout(tee):
+                trainer = train_cli.main(argv)
+        finally:
+            for name in ("make_train_step", "densify_step", "opacity_reset_step"):
+                setattr(tr, name, orig[name])
+            tr.Trainer.validate = orig["validate"]
+            tr.Trainer.save_checkpoint = orig["save_checkpoint"]
+        run1_s = time.perf_counter() - t_run1
+        launches = dict(_build.launches)
+        if any(v < 1 for v in launches.values()):
+            fail(f"phase 6: a kernel was not launched by the training loop: {launches}")
+        text = "".join(tee.parts)
+        hist = {r["step"]: r for r in trainer.history}
+        run_dir = trainer.out_dir
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ---- checks of run 1 -------------------------------------------
+        bad = [s for s, r in hist.items() if not math.isfinite(r["loss"])]
+        if bad or sorted(hist) != list(range(0, 600, 50)):
+            fail(f"phase 6: logged steps {sorted(hist)}, non-finite loss at {bad}")
+        growths = re.findall(r"\[tiling\] step (\d+): pair budget overflow, growing "
+                             r"max_pairs to (\d+)", text)
+        if not growths:
+            fail("phase 6: the pair budget never grew")
+        if hist[550]["num_dropped_pairs"] != 0:
+            fail(f"phase 6: {hist[550]['num_dropped_pairs']} pairs dropped at the last check")
+        alive = {s: int(r["n_gaussians"]) for s, r in sorted(hist.items())}
+        if not alive[200] > alive[150]:
+            fail(f"phase 6: no splats added by the step-200 densify event: {alive}")
+        final = torch.load(run_dir / "ckpt-00000600" / "state.pt", map_location="cpu",
+                           weights_only=True, mmap=True)
+        if final["scene"]["active_sh_degree"] != 3:
+            fail(f"phase 6: active SH degree {final['scene']['active_sh_degree']} in the "
+                 "final checkpoint")
+        del final
+        valid = [json.loads(x) for x in (run_dir / "valid_log.jsonl").read_text().splitlines()]
+        final_psnr = valid[-1]["valid_psnr"]
+        if valid[-1]["step"] != 600 or not final_psnr >= init_psnr + 1.0:
+            fail(f"phase 6: held-out PSNR {final_psnr} at step {valid[-1]['step']}, init "
+                 f"{init_psnr}")
+
+        # host syncs and wall time of the steps on no cadence
+        calls = rec["calls"]
+        quiet = [t for t in range(30, 599) if t % 50 and (t + 1) % 100 and t + 1 in calls
+                 and not LOOP_PROFILE[0] - 2 <= t <= LOOP_PROFILE[1] + 1]
+        walls = [(calls[t + 1][0] - calls[t][0]) * 1e3 for t in quiet]
+        syncs = [n_syncs(caught[calls[t][1]:calls[t + 1][1]]) for t in quiet]
+        if max(syncs) > bare_step_syncs:
+            fail(f"phase 6: a step on no cadence synced {max(syncs)} times, the bare step "
+                 f"{bare_step_syncs}")
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        window_ms = (rec["prof"][1] - rec["prof"][0]) * 1e3
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+
+        # ---- run 2: resume at step 300 in a subprocess -----------------
+        budget300 = rec["budget_at_save"][300]
+        argv2 = argv + ["--resume", str(run_dir / "ckpt-00000300"), "--iters", "300",
+                        "--set", f"train.tiling.max_pairs={budget300}",
+                        "--set", "run_name=resume"]
+        t_run2 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"{PKG}.scripts.train"] + argv2,
+                             cwd=ROOT, capture_output=True, text=True, timeout=600)
+        run2_s = time.perf_counter() - t_run2
+        print("resume: " + " | ".join(res.stdout.strip().splitlines()[-6:]), flush=True)
+        if res.returncode != 0:
+            fail(f"phase 6: the resumed run exited {res.returncode}: {res.stderr[-2000:]}")
+        (run2_dir,) = (run_dir.parent).glob("resume-*")
+        hist2 = {r["step"]: r for r in map(json.loads, (run2_dir / "train_log.jsonl")
+                                            .read_text().splitlines())}
+        if sorted(hist2) != list(range(300, 600, 50)):
+            fail(f"phase 6: the resumed run logged steps {sorted(hist2)}")
+        loss_diff = max(abs(hist2[s]["loss"] - hist[s]["loss"]) / hist[s]["loss"]
+                        for s in hist2)
+        alive2 = {s: int(r["n_gaussians"]) for s, r in hist2.items()}
+
+    wall = sorted(walls)[len(walls) // 2]
+    steps = LOOP_PROFILE[1] - LOOP_PROFILE[0]
+    row = {
+        "step_wall_ms_median": wall, "steps_timed": len(walls),
+        "step_wall_ms_min": min(walls), "step_wall_ms_max": max(walls),
+        # the profiler's host overhead stretches its window, so the idle
+        # share is taken against the median wall of the unprofiled steps
+        "device_idle_share": 1.0 - busy_ms / steps / wall,
+        "profiled_steps": list(LOOP_PROFILE), "device_busy_ms_per_step": busy_ms / steps,
+        "wall_ms_per_step_profiled": window_ms / steps,
+        "host_syncs_per_quiet_step": [min(syncs), max(syncs)],
+        "bare_step_host_syncs": bare_step_syncs,
+        "events": rec["events"], "budget_growths": [[int(a), int(b)] for a, b in growths],
+        "budget_at_checkpoints": rec["budget_at_save"], "alive": alive,
+        "alive_resumed": alive2, "init_psnr": init_psnr,
+        "valid_psnr": {v["step"]: v["valid_psnr"] for v in valid},
+        "resume_max_rel_loss_diff": loss_diff, "launches": launches,
+        "run1_s": run1_s, "run2_s": run2_s, "phase_s": time.perf_counter() - t_phase,
+    }
+    print("train_loop: " + json.dumps(row), flush=True)
+    if not loss_diff <= LOOP_LOSS_TOL:
+        fail(f"phase 6: the resumed run's losses differ from run 1's by {loss_diff} "
+             f"relative (> {LOOP_LOSS_TOL})")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -837,7 +1175,12 @@ def main() -> int:
     phase2()
     scene, budget, kernels = phase3()
     phase4()
-    kernels += phase5(scene, budget)
+    bare_step_syncs, step_kernels = phase5(scene, budget)
+    kernels += step_kernels
+    del scene
+    loop_launches = phase6(bare_step_syncs)
+    for row in kernels:
+        row["loop_launches"] = loop_launches[row["name"]]
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -8,10 +8,14 @@ module paths and public names so each function's counterpart is easy to find.
                 (K2 forward; K3 and K4 backward) and SSIM (K5);
                 ``ops/_build.py`` builds the kernels from ``csrc/`` with
                 ``nvcc`` at first use
-- ``models``    the padded-capacity ``GaussianScene`` and PLY interchange
+- ``models``    the padded-capacity ``GaussianScene`` (``reset_opacity``, SH
+                warm-up) and PLY interchange
 - ``data``      COLMAP / Blender parsing and view datasets (numpy)
 - ``training``  the training step (render, loss, backward, Adam, densification
-                statistics), ``render_scene`` and ``resolve_rasterizer``
+                statistics), densify/prune, the ``Trainer`` loop (cadences,
+                adaptive budgets, NaN rollback, validation, checkpoints) and
+                the YAML run configuration
+- ``scripts``   the train and render CLIs
 - ``interop``   carries weights, Adam state and cameras over from numpy / the
                 JAX fields
 

@@ -1,7 +1,8 @@
 """Native COLMAP reconstruction parser and writer (binary + text), no pycolmap.
 
 Counterpart (a numpy copy) of ``gaussian_splatting_lightning_tpu/data/colmap.py``,
-plus ``write_reconstruction``, the binary writer the port's own tools use.
+plus ``write_reconstruction``, the binary writer the port's own tools use,
+and ``rotmat_to_qvec`` (``scripts/make_synthetic_scene.py``'s).
 The reference leans on the pycolmap C++ binding
 (``gs_lightning/datasets/colmap_dataset.py:48-52``); the formats are simple,
 stable binary layouts, parsed here with ``struct``/numpy.
@@ -280,6 +281,19 @@ def get_nerf_norm(reconstruction: Reconstruction) -> dict:
     center = centers.mean(axis=0, keepdims=True)
     max_dist = np.linalg.norm(centers - center, axis=1).max()
     return {"translate": -center, "radius": float(max_dist * 1.1)}
+
+
+def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """(3, 3) rotation -> wxyz quaternion (COLMAP convention)."""
+    K = np.array([
+        [R[0, 0] - R[1, 1] - R[2, 2], 0, 0, 0],
+        [R[0, 1] + R[1, 0], R[1, 1] - R[0, 0] - R[2, 2], 0, 0],
+        [R[0, 2] + R[2, 0], R[1, 2] + R[2, 1], R[2, 2] - R[0, 0] - R[1, 1], 0],
+        [R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1], R[0, 0] + R[1, 1] + R[2, 2]],
+    ]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return q * np.sign(q[0]) if q[0] != 0 else q
 
 
 def write_reconstruction(root, cameras: dict, images: dict,

@@ -1,8 +1,8 @@
 """View dataset over a COLMAP reconstruction.
 
 Counterpart (numpy) of ``gaussian_splatting_lightning_tpu/data/dataset.py``
-(``ViewItem``, ``ColmapDataset``; the training ``ViewSampler`` comes with the
-training slice). Images are read with OpenCV (``data/image_io.py``).
+(``ViewItem``, ``ColmapDataset``, ``ViewSampler``). Images are read with
+OpenCV (``data/image_io.py``).
 Behavioral spec: reference ``ColmapDataset`` / ``ColmapDataModule``
 (``gs_lightning/datasets/colmap_dataset.py``): per-view dict of {image,
 tanfovx/y, background, viewmatrix, projmatrix, campos}, resize_to/downscale,
@@ -176,3 +176,40 @@ class ColmapDataset:
             mask = _resize(mask, w, h).astype(np.float32) / 255.0
             image = image * mask
         return np.moveaxis(image, -1, 0).astype(np.float32)
+
+
+class ViewSampler:
+    """Iteration-count-defined random sampling without replacement.
+
+    Spec: reference ``ConfigTrainDataloader`` (datasets/dataloader.py:11-21):
+    torch RandomSampler draws repeated fresh permutations of the view set
+    until num_iters samples are yielded, reproduced with numpy permutations
+    (the JAX package's sequence for the same seed).
+    """
+
+    def __init__(self, n_views: int, seed: int = 0):
+        self.n_views = n_views
+        self.rng = np.random.default_rng(seed)
+        self._perm: List[int] = []
+
+    def next_index(self) -> int:
+        if not self._perm:
+            self._perm = list(self.rng.permutation(self.n_views))
+        return int(self._perm.pop(0))
+
+    def next_batch(self, batch_size: int) -> List[int]:
+        return [self.next_index() for _ in range(batch_size)]
+
+    def state(self) -> dict:
+        """JSON-serializable snapshot for exact-trajectory resume (the
+        trainer checkpoints this so a restored run draws the same view
+        sequence the original would have)."""
+        return {
+            "sampler_state": self.rng.bit_generator.state,
+            "perm": [int(i) for i in self._perm],
+        }
+
+    def set_state(self, state: dict) -> None:
+        self.rng = np.random.default_rng()
+        self.rng.bit_generator.state = state["sampler_state"]
+        self._perm = list(state["perm"])

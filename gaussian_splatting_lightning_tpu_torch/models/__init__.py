@@ -5,6 +5,7 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import (  # noqa: F
     PARAM_NAMES,
     GaussianParams,
     GaussianScene,
+    from_colmap_points_ply,
     from_points,
     load_ply,
     save_ply,

@@ -1,8 +1,8 @@
 """GaussianScene: the splat store as padded-capacity tensors on one device.
 
-Counterpart of ``gaussian_splatting_lightning_tpu/models/gaussians.py``
-(densify and ``reset_opacity`` come with the training slice). Every tensor
-has ``capacity`` rows and an ``alive`` mask, as in the JAX package.
+Counterpart of ``gaussian_splatting_lightning_tpu/models/gaussians.py``;
+densification edits the scene in ``training/densify.py``. Every tensor has
+``capacity`` rows and an ``alive`` mask, as in the JAX package.
 
 Parameters (the reference's six, gaussian_model.py:19-26, pre-activation):
   xyz (C,3) | features_dc (C,1,3) | features_rest (C,K-1,3) |
@@ -82,6 +82,12 @@ class GaussianScene:
         return dataclasses.replace(
             self, active_sh_degree=min(self.active_sh_degree + 1, self.max_sh_degree)
         )
+
+    def reset_opacity(self) -> "GaussianScene":
+        """min(opacity, 0.01) in probability space; gaussian_model.py:289-293."""
+        new = tf.inverse_sigmoid(torch.clamp_max(self.get_opacity(), 0.01))
+        return dataclasses.replace(
+            self, params=dataclasses.replace(self.params, opacity=new))
 
 
 def _pad(arr: np.ndarray, capacity: int, fill: float = 0.0) -> np.ndarray:
@@ -177,6 +183,14 @@ def from_points(
     log_scales = np.repeat(np.log(np.sqrt(dist))[:, None], 3, axis=1)
     d = initial_arrays(xyz, rgb, sh_degree, log_scales)
     return _padded_scene(d, capacity, 0, device, dtype)
+
+
+def from_colmap_points_ply(ply_path: str, capacity: int, sh_degree: int = 3,
+                           device="cuda") -> GaussianScene:
+    """``from_points`` on a COLMAP-style points PLY (x, y, z, red, green,
+    blue)."""
+    xyz, rgb = ply_io.read_points_ply(ply_path)
+    return from_points(xyz, rgb, capacity, sh_degree, device=device)
 
 
 def save_ply(scene: GaussianScene, path: str) -> None:

@@ -1,0 +1,157 @@
+"""Training entry point.
+
+Counterpart of the JAX package's ``scripts/train.py`` (itself capability
+parity with the reference's ``scripts/train.py``): a YAML or JSON config with
+``--set`` overrides, a COLMAP or Blender scene with a holdout split, the
+``Trainer`` loop on the CUDA kernels, checkpoints and resume, PLY exports.
+
+Usage:
+    python -m gaussian_splatting_lightning_tpu_torch.scripts.train \
+        -c configs/train_gs.yaml [--seed 42] [--iters N] [--out-dir runs] \
+        [--resume CKPT_DIR|auto] [--set train.num_iters=100 ...] [--device cuda]
+
+``--device cpu`` runs every kernel's plain PyTorch version (slow; for tests).
+The run directory ``<out-dir>/<exp_name>/<run_name>-<time>/`` receives
+``config.json``, ``train_log.jsonl``, ``valid_log.jsonl``, validation
+triptychs, PLYs and ``ckpt-XXXXXXXX/`` checkpoints.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from pathlib import Path
+
+
+def load_views(d, holdout_every_default: int = 8):
+    """(train views, valid views, init points xyz, rgb or None, scene
+    normalisation) of the data config ``d``; rgb is None for a Blender scene,
+    whose points come from ``random_init_points``."""
+    from gaussian_splatting_lightning_tpu_torch.data.colmap import (
+        get_nerf_norm,
+        read_reconstruction,
+    )
+    from gaussian_splatting_lightning_tpu_torch.data.dataset import ColmapDataset
+    from gaussian_splatting_lightning_tpu_torch.data.nerf import (
+        NerfDataset,
+        is_nerf_dataset,
+        nerf_norm_from_views,
+    )
+
+    if is_nerf_dataset(d.colmap_path):
+        # Blender / NeRF-synthetic scene: transforms_*.json cameras, RGBA
+        # over the background, SfM-free random-point initialization
+        common = dict(scene_path=d.colmap_path, resize_to=d.resize_to,
+                      downscale=d.downscale, white_background=d.white_background,
+                      z_near=d.z_near, z_far=d.z_far)
+        train_ds = NerfDataset(split="train", **common)
+        train_views = [train_ds[i] for i in range(len(train_ds))]
+        try:
+            valid_ds = NerfDataset(split="val", **common)
+            valid_views = [valid_ds[i] for i in range(len(valid_ds))]
+        except FileNotFoundError:
+            k = d.holdout_every or holdout_every_default
+            valid_views = train_views[::k]
+            train_views = [v for i, v in enumerate(train_views) if i % k]
+        return train_views, valid_views, None, None, nerf_norm_from_views(train_views)
+    rec = read_reconstruction(d.colmap_path)
+    common = dict(colmap_path=d.colmap_path, image_folder=d.image_folder,
+                  mask_folder=d.mask_folder, depth_folder=d.depth_folder,
+                  resize_to=d.resize_to, downscale=d.downscale,
+                  white_background=d.white_background, z_near=d.z_near,
+                  z_far=d.z_far, reconstruction=rec)
+    if d.train_idx_file:
+        train_ds = ColmapDataset(image_idx=d.train_idx_file, **common)
+        valid_ds = ColmapDataset(image_idx=d.valid_idx_file, **common)
+        train_views = [train_ds[i] for i in range(len(train_ds))]
+        valid_views = [valid_ds[i] for i in range(len(valid_ds))]
+    else:
+        ds = ColmapDataset(**common)
+        views = [ds[i] for i in range(len(ds))]
+        k = d.holdout_every or holdout_every_default
+        valid_views = views[::k]
+        train_views = [v for i, v in enumerate(views) if i % k]
+    return train_views, valid_views, rec.points_xyz, rec.points_rgb, get_nerf_norm(rec)
+
+
+def main(argv=None):
+    """Run training; returns the ``Trainer`` after its final validation."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", required=True)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--iters", type=int, default=None)
+    parser.add_argument("--out-dir", type=str, default=None)
+    parser.add_argument("--resume", type=str, default=None,
+                        help="a ckpt-XXXXXXXX directory, or 'auto': the newest "
+                        "checkpoint of the most recently written run")
+    parser.add_argument(
+        "--set", action="append", default=[], metavar="KEY=VALUE",
+        help="dotted config override, e.g. --set train.num_iters=100 "
+        "--set train.tiling.max_pairs=1048576 (repeatable)",
+    )
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the kernels) or cpu (their plain versions)")
+    args = parser.parse_args(argv)
+
+    from gaussian_splatting_lightning_tpu_torch.data.nerf import random_init_points
+    from gaussian_splatting_lightning_tpu_torch.device import resolve_device
+    from gaussian_splatting_lightning_tpu_torch.models import from_points, save_ply
+    from gaussian_splatting_lightning_tpu_torch.training.config import load_config
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import (
+        Trainer,
+        find_resume_checkpoint,
+    )
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config, overrides=args.set)
+    if args.seed is not None:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=args.seed))
+    if args.iters is not None:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                 num_iters=args.iters))
+
+    out_dir = Path(args.out_dir or cfg.out_dir) / cfg.exp_name / (
+        cfg.run_name + time.strftime("-%Y%m%d-%H%M%S"))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "config.json").write_text(
+        json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
+
+    train_views, valid_views, pts_xyz, pts_rgb, norm = load_views(cfg.data)
+    if pts_xyz is None:
+        pts_xyz, pts_rgb = random_init_points(n=min(cfg.capacity, 100_000),
+                                              seed=cfg.train.seed)
+    print(f"scene radius (spatial scale): {norm['radius']:.3f}")
+    scene = from_points(pts_xyz, pts_rgb, capacity=cfg.capacity,
+                        sh_degree=cfg.sh_degree, device=device)
+    print(f"init: {len(pts_xyz)} points, capacity {cfg.capacity}, "
+          f"{len(train_views)} train / {len(valid_views)} valid views, {device}")
+
+    trainer = Trainer(cfg.train, scene, norm["radius"], train_views, valid_views,
+                      out_dir=out_dir)
+    if args.resume:
+        resume_path = args.resume
+        if resume_path == "auto":
+            best = find_resume_checkpoint(out_dir.parent)
+            resume_path = str(best) if best else None
+            if best:
+                print(f"--resume auto: run {best.parent.name}, "
+                      f"step {int(best.name.split('-')[-1])}")
+                prev_cfg = best.parent / "config.json"
+                if prev_cfg.exists() and prev_cfg.read_text() != (
+                        out_dir / "config.json").read_text():
+                    print("WARNING: resumed run's config.json differs from the "
+                          "current config — trajectories will diverge")
+        if resume_path:
+            trainer.restore_checkpoint(resume_path)
+            print(f"resumed from {resume_path} at step {trainer.step}")
+    trainer.train()
+    trainer.validate()
+    save_ply(trainer.scene, out_dir / "point_cloud-final.ply")
+    print(f"done; artifacts in {out_dir}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

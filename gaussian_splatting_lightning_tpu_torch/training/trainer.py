@@ -1,23 +1,43 @@
-"""The training step and the render entry points of the trainer.
+"""The training loop: the step, the scene-changing events and their cadences.
 
-Counterpart of ``TrainConfig``, ``resolve_rasterizer``, ``render_scene``,
-``make_train_step`` and ``make_eval_step`` in
-``gaussian_splatting_lightning_tpu/training/trainer.py``, for one view per
-step. One ``train_step`` is render -> loss -> backward -> Adam ->
-densification statistics, eager PyTorch around the kernels (K1 and K2 in
-the render, K5 in the loss and its backward, K3 and K4 in the render's
-backward). The ``Trainer`` loop with its cadences, ``densify_and_prune``,
-``reset_opacity`` and checkpoints come in a later slice.
+Counterpart of ``gaussian_splatting_lightning_tpu/training/trainer.py`` for
+one view per step and one device. One ``train_step`` is render -> loss ->
+backward -> Adam -> densification statistics, eager PyTorch around the
+kernels (K1 and K2 in the render, K5 in the loss and its backward, K3 and K4
+in the render's backward). The events that change the scene (densify/prune,
+opacity reset, SH warm-up) run between steps on the cadences of the
+reference's ``on_train_batch_start`` (gs_lightning_module.py:144-161):
+
+  step t (0-based, == Lightning global_step at batch start), t >= 1:
+    - densify stats from step t-1 are already accumulated (in-step tail)
+    - if t > densify_since and t % densify_interval == 0 and
+      t < densify_until:   densify_and_prune (+ Adam surgery)
+    - if t % opacity_reset_interval == 0:  reset opacity
+    - if t % sh_degree_step_interval == 0: step SH degree
+
+The ``Trainer`` adds adaptive pair budgets, NaN rollback, validation and
+checkpoints (``torch.save`` of the scene, Adam and the step, plus the view
+sampler's and the noise generator's state as JSON, so a resume replays the
+same trajectory) with retention, and a PLY at every validation.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import math
+import shutil
+import time
+from pathlib import Path
+from typing import Optional
 
+import numpy as np
 import torch
 
-from gaussian_splatting_lightning_tpu_torch.core.camera import Camera
+from gaussian_splatting_lightning_tpu_torch.core.camera import Camera, camera_from_matrices
+from gaussian_splatting_lightning_tpu_torch.data.dataset import ViewSampler
+from gaussian_splatting_lightning_tpu_torch.models import gaussians as gm
 from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
     PARAM_NAMES,
     GaussianParams,
@@ -25,30 +45,70 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
 )
 from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
 from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize
-from gaussian_splatting_lightning_tpu_torch.training.densify import accumulate_stats
-from gaussian_splatting_lightning_tpu_torch.training.exposure import apply_exposure
+from gaussian_splatting_lightning_tpu_torch.training.densify import (
+    DensifyConfig,
+    accumulate_stats,
+    densify_and_prune,
+)
+from gaussian_splatting_lightning_tpu_torch.training.exposure import (
+    ExposureState,
+    apply_exposure,
+    exposure_update,
+    init_exposure,
+)
 from gaussian_splatting_lightning_tpu_torch.training.loss import photometric_loss
 from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
+    AdamState,
     OptimizerConfig,
     adam_update,
+    init_adam,
     make_lr_schedules,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields the step reads; defaults mirror the reference CFGTrainer
-    (gs_lightning_module.py:21-45) and configs/train_gs.yaml. Exposure is on
-    for a step when it is given ``exp_mat``; the loop's fields (cadences,
-    densify thresholds, exposure lr) come with the ``Trainer``."""
+    """Defaults mirror the reference CFGTrainer (gs_lightning_module.py:21-45)
+    and configs/train_gs.yaml, field for field with the JAX ``TrainConfig``.
+    A step applies exposure when it is given ``exp_mat``; the ``Trainer``
+    gives it one when ``use_exposure`` is set."""
 
+    num_iters: int = 30_000
     w_ssim: float = 0.2
     w_depth: float = 0.0  # inverse-depth L1 against a depth map
+    log_interval: int = 100
+    valid_interval: int = 1000
+    checkpoint_interval: int = 5000
+    seed: int = 42
+    capacity: int = 1 << 20
     antialias: bool = False
     sparse_adam: bool = False  # update only the splats visible this step
+    adaptive_pairs: bool = True  # double max_pairs when a checked step drops pairs
+    overflow_check_interval: int = 50  # steps between host reads of the stats
+    shrink_patience: int = 8  # checks below max_pairs/4 before the budget shrinks
+    max_nan_rollbacks: int = 3  # non-finite loss: restore the newest checkpoint
+    keep_last_ckpts: int = 3  # checkpoint retention; 0 keeps every checkpoint
+    batch_views: int = 1  # views per step; only 1 is ported
+    use_exposure: bool = False  # per-view affine colour compensation
+    exposure_lr: float = 0.001
     rasterizer: str = "cuda"  # cuda | plain
+    densify: DensifyConfig = DensifyConfig()
     optimizer: OptimizerConfig = OptimizerConfig()
     tiling: TilingConfig = TilingConfig()
+
+
+def find_resume_checkpoint(exp_dir) -> Optional[Path]:
+    """``--resume auto`` selection: the most recently WRITTEN run under the
+    experiment dir, then the newest checkpoint BY STEP within that run."""
+    exp_dir = Path(exp_dir)
+    candidates = [p for p in exp_dir.glob("*/ckpt-*") if p.is_dir()]
+    if not candidates:
+        return None
+    newest = max(candidates, key=lambda p: p.stat().st_mtime)
+    return max(
+        (p for p in newest.parent.glob("ckpt-*") if p.is_dir()),
+        key=lambda p: int(p.name.split("-")[-1]),
+    )
 
 
 def resolve_rasterizer(name: str):
@@ -181,3 +241,404 @@ def make_eval_step(cfg: TrainConfig, width: int, height: int):
         return out.image, out.depth, logs
 
     return eval_step
+
+
+def densify_step(scene, adam, noise, cfg: DensifyConfig, spatial_scale, apply_screensize):
+    """``densify_and_prune`` (the JAX event of the same name)."""
+    return densify_and_prune(scene, adam, noise, cfg, spatial_scale, apply_screensize)
+
+
+def opacity_reset_step(scene: GaussianScene) -> GaussianScene:
+    return scene.reset_opacity()
+
+
+def sh_degree_step(scene: GaussianScene) -> GaussianScene:
+    return scene.step_sh_degree()
+
+
+def _host_floats(logs: dict) -> dict:
+    """Every log value (0-dim tensors) as a Python float, read from the
+    device in one transfer (the counts are exact in float64)."""
+    keys = list(logs)
+    dev = logs[keys[0]].device
+    vals = torch.stack([logs[k].to(dev, torch.float64).reshape(()) for k in keys]).tolist()
+    return dict(zip(keys, vals))
+
+
+class Trainer:
+    """Host-side orchestration: cadences, logging, eval, checkpoints.
+
+    The scene's device is the Trainer's: every view, the noise generator and
+    the checkpoints' tensors live there. ``mesh`` and ``batch_views > 1``
+    are not ported yet and raise.
+    """
+
+    def __init__(
+        self,
+        cfg: TrainConfig,
+        scene: GaussianScene,
+        spatial_scale: float,
+        train_views,  # sequence of ViewItem (all same image size)
+        valid_views=(),
+        out_dir: Optional[str] = None,
+        log_fn=print,
+        mesh=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("Trainer(mesh=...): the multi-device step is not "
+                                      "ported yet (ROADMAP.md queue A, item 9)")
+        if cfg.batch_views != 1:
+            raise NotImplementedError(f"batch_views={cfg.batch_views}: only one view per "
+                                      "step is ported (ROADMAP.md queue A, item 7)")
+        self.cfg = cfg
+        self.scene = scene
+        self.device = scene.device
+        self.adam = init_adam(scene.params)
+        self.spatial_scale = float(spatial_scale)
+        self.train_views = list(train_views)
+        self.valid_views = list(valid_views)
+        self.out_dir = Path(out_dir) if out_dir else None
+        if self.out_dir:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.log_fn = log_fn
+        self.step = 0
+        # the split noise of densification: the JAX loop's PRNG key
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+        self.exposure: Optional[ExposureState] = None
+        if cfg.use_exposure:
+            self.exposure = init_exposure(len(self.train_views), device=self.device)
+
+        h, w = self.train_views[0].image.shape[-2:]
+        self.height, self.width = h, w
+        self._build_steps()
+        self._sampler = ViewSampler(len(self.train_views), cfg.seed)
+        self._view_cache: dict = {}
+        self._depth_cache: dict = {}
+        self.history: list = []
+        self._shrink_streak = 0
+        self._nan_rollbacks = 0
+        self._last_ckpt: Optional[Path] = None
+
+    def _build_steps(self):
+        self._train_step = make_train_step(self.cfg, self.spatial_scale, self.width,
+                                           self.height)
+        self._eval_step = make_eval_step(self.cfg, self.width, self.height)
+        # validation-only grown budget re-derives from the new train budget
+        self._valid_eval_step = None
+        self._valid_tiling = None
+
+    def _maybe_grow_budgets(self, logs):
+        """Adaptive pair budget: every per-pair stage is shaped by
+        ``tiling.max_pairs``, so the budget doubles when a checked step
+        dropped pairs (the step only lost its farthest splats), and shrinks
+        to 2x the observed count after ``shrink_patience`` consecutive checks
+        below a quarter of it. ``logs`` holds host floats; the caller reads
+        them only every ``overflow_check_interval`` steps."""
+        if not self.cfg.adaptive_pairs:
+            return
+        tiling = self.cfg.tiling
+        grown = None
+        if int(logs.get("num_dropped_pairs", 0)) > 0:
+            grown = dataclasses.replace(tiling, max_pairs=tiling.max_pairs * 2)
+            self.log_fn(
+                f"[tiling] step {self.step}: pair budget overflow, growing "
+                f"max_pairs to {grown.max_pairs}"
+            )
+        overflow = int(logs.get("num_tile_overflow", 0))
+        if overflow > 0:
+            # the port's rasterizer has no per-tile member table, so its
+            # count is always 0 (ops/rasterize.py); the JAX XLA path's
+            # tile_capacity growth comes with that path (ROADMAP queue A, 6)
+            raise RuntimeError(f"step {self.step}: num_tile_overflow={overflow}, but the "
+                               "port's rasterizer has no tile capacity to grow")
+        pairs = int(logs.get("num_pairs", -1))
+        if grown is None and pairs >= 0:
+            if pairs * 4 < tiling.max_pairs and tiling.max_pairs > 16384:
+                self._shrink_streak += 1
+            else:
+                self._shrink_streak = 0
+            if self._shrink_streak >= self.cfg.shrink_patience:
+                new_pairs = max(16384, -(-pairs * 2 // 8192) * 8192)
+                if new_pairs < tiling.max_pairs:
+                    grown = dataclasses.replace(tiling, max_pairs=new_pairs)
+                    self.log_fn(
+                        f"[tiling] step {self.step}: pair budget idle "
+                        f"({pairs} used of {tiling.max_pairs}), shrinking "
+                        f"max_pairs to {new_pairs}"
+                    )
+                self._shrink_streak = 0
+        else:
+            self._shrink_streak = 0
+        if grown is not None:
+            self.cfg = dataclasses.replace(self.cfg, tiling=grown)
+            self._build_steps()
+
+    def _check_finite(self, logs) -> bool:
+        """A non-finite loss restores the newest checkpoint and re-enters
+        training from its step; without one, or after ``max_nan_rollbacks``,
+        it raises. Returns True if rolled back."""
+        if math.isfinite(logs["loss"]):
+            return False
+        self._nan_rollbacks += 1
+        if self._nan_rollbacks > self.cfg.max_nan_rollbacks:
+            raise RuntimeError(
+                f"non-finite loss at step {self.step}: exceeded "
+                f"{self.cfg.max_nan_rollbacks} checkpoint rollbacks"
+            )
+        if self._last_ckpt is None:
+            raise RuntimeError(
+                f"non-finite loss at step {self.step} and no checkpoint to "
+                "roll back to (lower learning rates or densify thresholds)"
+            )
+        self.log_fn(
+            f"[recover] step {self.step}: non-finite loss, restoring "
+            f"{self._last_ckpt.name} "
+            f"(rollback {self._nan_rollbacks}/{self.cfg.max_nan_rollbacks})"
+        )
+        self.restore_checkpoint(self._last_ckpt)
+        return True
+
+    def _camera_of(self, view) -> Camera:
+        return camera_from_matrices(view.viewmatrix, view.projmatrix, view.campos,
+                                    view.tanfovx, view.tanfovy, device=self.device)
+
+    def _upload(self, array) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(array, np.float32)).to(self.device)
+
+    def _device_view(self, idx):
+        """Per-view device tensors, uploaded once and cached."""
+        cached = self._view_cache.get(idx)
+        if cached is None:
+            view = self.train_views[idx]
+            cached = (self._camera_of(view), self._upload(view.image),
+                      self._upload(view.background))
+            self._view_cache[idx] = cached
+        return cached
+
+    def _device_depth(self, idx):
+        cached = self._depth_cache.get(idx)
+        if cached is None:
+            depth = self.train_views[idx].depth
+            if depth is None:
+                raise ValueError("w_depth > 0 requires depth maps (data.depth_folder)")
+            cached = self._depth_cache[idx] = self._upload(depth)
+        return cached
+
+    def densify_noise(self) -> torch.Tensor:
+        """The split displacement's standard-normal draw, (capacity, 3)."""
+        return torch.randn((self.scene.capacity, 3), generator=self.generator,
+                           device=self.device, dtype=self.scene.params.xyz.dtype)
+
+    def maybe_densify(self):
+        """Cadence gate: reference on_train_batch_start
+        (gs_lightning_module.py:144-161)."""
+        t, d = self.step, self.cfg.densify
+        if t < 1:
+            return
+        if t < d.densify_until and t > d.densify_since and t % d.densify_interval == 0:
+            self.scene, self.adam, stats = densify_step(
+                self.scene, self.adam, self.densify_noise(), d, self.spatial_scale,
+                t > d.opacity_reset_interval,
+            )
+            stats = {k: int(v) for k, v in _host_floats(stats).items()}
+            if stats["n_dropped_children"] > 0:
+                self.log_fn(
+                    f"[densify] step {t}: capacity full, dropped "
+                    f"{stats['n_dropped_children']} children"
+                )
+            if stats["n_pruned"] > max(100, 0.1 * stats["n_alive"]):
+                self.log_fn(
+                    f"[densify] step {t}: pruned {stats['n_pruned']} "
+                    f"(opacity {stats['n_pruned_opacity']}, "
+                    f"screen {stats['n_pruned_screen']}, "
+                    f"size {stats['n_pruned_size']}), alive {stats['n_alive']}"
+                )
+        if t % d.opacity_reset_interval == 0:
+            self.scene = opacity_reset_step(self.scene)
+        if t % d.sh_degree_step_interval == 0:
+            self.scene = sh_degree_step(self.scene)
+
+    def train(self, num_iters: Optional[int] = None):
+        num_iters = num_iters or self.cfg.num_iters
+        t_start = time.perf_counter()
+        check_interval = max(1, min(self.cfg.overflow_check_interval, self.cfg.log_interval))
+        for _ in range(num_iters):
+            if self.valid_views and self.step > 0 and self.step % self.cfg.valid_interval == 0:
+                # validate BEFORE this step's densify hook: after an opacity
+                # reset on the same step the PSNR reads low by construction
+                self.validate()
+            self.maybe_densify()
+            view_idx = self._sampler.next_index()
+            cam, img, bg = self._device_view(view_idx)
+            extra = {}
+            if self.cfg.w_depth > 0:
+                extra["depth_target"] = self._device_depth(view_idx)
+            if self.exposure is not None:
+                self.scene, self.adam, logs, exp_grad = self._train_step(
+                    self.scene, self.adam, self.step, cam, img, bg,
+                    self.exposure.params[view_idx], **extra)
+                self.exposure = exposure_update(self.exposure, view_idx, exp_grad,
+                                                self.cfg.exposure_lr)
+            else:
+                self.scene, self.adam, logs = self._train_step(
+                    self.scene, self.adam, self.step, cam, img, bg, **extra)
+            host = None
+            if self.step % check_interval == 0:
+                host = _host_floats(logs)
+                if self._check_finite(host):
+                    continue  # rolled back; re-enter the loop from the ckpt
+                self._maybe_grow_budgets(host)
+            if self.step % self.cfg.log_interval == 0:
+                logs = dict(host or _host_floats(logs))
+                logs["step"] = self.step
+                logs["elapsed_s"] = time.perf_counter() - t_start
+                self.history.append(logs)
+                self.log_fn(
+                    f"step {self.step}: loss={logs['loss']:.4f} "
+                    f"psnr={logs['psnr']:.2f} n={int(logs['n_gaussians'])}"
+                )
+                if self.out_dir:
+                    with open(self.out_dir / "train_log.jsonl", "a") as f:
+                        f.write(json.dumps(logs) + "\n")
+            self.step += 1
+            # checkpoint AFTER the increment: a saved "step" is the next step
+            # to run, so a restore replays the remaining trajectory exactly
+            if self.out_dir and self.step % self.cfg.checkpoint_interval == 0:
+                self.save_checkpoint()
+        if self.out_dir and (
+            self._last_ckpt is None or int(self._last_ckpt.name.split("-")[-1]) != self.step
+        ):
+            # the final state, so a completed run resumes from its end
+            self.save_checkpoint()
+        return self.scene
+
+    def _save_triptych(self, view, image, depth, name):
+        """[GT | render | depth] artifact, the reference's get_visuals
+        (gs_lightning_module.py:352-363)."""
+        from gaussian_splatting_lightning_tpu_torch.data.image_io import write_image
+
+        image = np.clip(image.detach().cpu().numpy(), 0, 1)
+        depth = depth.detach().cpu().numpy()
+        depth = depth / max(float(depth.max()), 1e-8)
+        trip = np.concatenate([view.image, image, np.repeat(depth, 3, axis=0)], axis=-1)
+        write_image(self.out_dir / name, (np.moveaxis(trip, 0, -1) * 255).astype(np.uint8))
+
+    def _valid_render(self, view):
+        """Render one validation view; on pair drops, grow a validation-only
+        budget and re-render (up to 3 doublings) instead of reporting a
+        degraded PSNR. The grown budget persists across validations and never
+        touches the train-adapted budget."""
+        step_fn = self._valid_eval_step or self._eval_step
+        cam = self._camera_of(view)
+        img, bg = self._upload(view.image), self._upload(view.background)
+        for attempt in range(4):
+            image, depth, logs = step_fn(self.scene, cam, img, bg)
+            logs = _host_floats(logs)
+            dropped = int(logs["num_dropped_pairs"])
+            overflow = int(logs["num_tile_overflow"])
+            if (not dropped and not overflow) or attempt == 3:
+                break
+            if overflow:  # see _maybe_grow_budgets
+                raise RuntimeError(f"validation render: num_tile_overflow={overflow}, but "
+                                   "the port's rasterizer has no tile capacity to grow")
+            tiling = self._valid_tiling or self.cfg.tiling
+            tiling = dataclasses.replace(tiling, max_pairs=tiling.max_pairs * 2)
+            self.log_fn(
+                f"[valid] step {self.step}: render dropped {dropped} pairs "
+                f"— re-rendering with max_pairs={tiling.max_pairs}"
+            )
+            self._valid_tiling = tiling
+            step_fn = self._valid_eval_step = make_eval_step(
+                dataclasses.replace(self.cfg, tiling=tiling), self.width, self.height)
+        return image, depth, logs
+
+    def validate(self):
+        metrics = []
+        for i, view in enumerate(self.valid_views):
+            image, depth, logs = self._valid_render(view)
+            if self.out_dir and i < 2:  # two sample views, like the reference
+                self._save_triptych(view, image, depth, f"valid{i}-{self.step:08d}.jpg")
+            metrics.append(logs)
+        mean = {f"valid_{k}": float(np.mean([m[k] for m in metrics])) for k in metrics[0]}
+        mean["step"] = self.step
+        dropped = int(sum(m["num_dropped_pairs"] for m in metrics))
+        mean["valid_num_dropped_pairs"] = dropped
+        if dropped:
+            self.log_fn(
+                f"[valid] WARNING step {self.step}: validation renders still "
+                f"dropped {dropped} pairs after 3 budget growths — PSNR below "
+                "is degraded"
+            )
+        self.log_fn(
+            f"[valid] step {self.step}: psnr={mean['valid_psnr']:.2f} "
+            f"loss={mean['valid_loss']:.4f}"
+        )
+        if self.out_dir:
+            with open(self.out_dir / "valid_log.jsonl", "a") as f:
+                f.write(json.dumps(mean) + "\n")
+            gm.save_ply(self.scene, self.out_dir / f"point_cloud-{self.step:08d}.ply")
+        return mean
+
+    # -- checkpoint/resume (a capability the reference lacks) --------------
+    def save_checkpoint(self):
+        """``ckpt-XXXXXXXX/``: ``state.pt`` (scene, Adam, step, exposure) and
+        ``trainer_state.json`` (view sampler, noise generator)."""
+        path = (self.out_dir / f"ckpt-{self.step:08d}").absolute()
+        path.mkdir(parents=True, exist_ok=True)
+        s = self.scene
+        ckpt = {
+            "scene": dict({k: getattr(s.params, k) for k in PARAM_NAMES},
+                          alive=s.alive, max_radii2d=s.max_radii2d,
+                          grad_accum=s.grad_accum, grad_count=s.grad_count,
+                          active_sh_degree=s.active_sh_degree),
+            "adam": {"count": self.adam.count,
+                     "mu": {k: getattr(self.adam.mu, k) for k in PARAM_NAMES},
+                     "nu": {k: getattr(self.adam.nu, k) for k in PARAM_NAMES}},
+            "step": self.step,
+        }
+        if self.exposure is not None:
+            e = self.exposure
+            ckpt["exposure"] = {"params": e.params, "mu": e.mu, "nu": e.nu, "count": e.count}
+        torch.save(ckpt, path / "state.pt")
+        host_state = dict(self._sampler.state(),
+                          generator=bytes(self.generator.get_state().tolist()).hex())
+        with open(path / "trainer_state.json", "w") as f:
+            json.dump(host_state, f)
+        self._last_ckpt = path
+        self._gc_checkpoints()
+
+    def _gc_checkpoints(self):
+        """Retention: keep only the newest ``keep_last_ckpts`` checkpoints by
+        step (each is a capacity-sized scene and two Adam moments)."""
+        keep = self.cfg.keep_last_ckpts
+        if not keep or self.out_dir is None:
+            return
+        ckpts = sorted((p for p in self.out_dir.glob("ckpt-*") if p.is_dir()),
+                       key=lambda p: int(p.name.split("-")[-1]))
+        for stale in ckpts[:-keep]:
+            shutil.rmtree(stale, ignore_errors=True)
+
+    def restore_checkpoint(self, path):
+        """Load a checkpoint onto the Trainer's device. One without an
+        ``exposure`` entry keeps the current exposure."""
+        path = Path(path).absolute()
+        ckpt = torch.load(path / "state.pt", map_location=self.device, weights_only=True)
+        sc = ckpt["scene"]
+        self.scene = GaussianScene(
+            params=GaussianParams(**{k: sc[k] for k in PARAM_NAMES}),
+            alive=sc["alive"], max_radii2d=sc["max_radii2d"],
+            grad_accum=sc["grad_accum"], grad_count=sc["grad_count"],
+            active_sh_degree=int(sc["active_sh_degree"]))
+        ad = ckpt["adam"]
+        self.adam = AdamState(count=int(ad["count"]), mu=GaussianParams(**ad["mu"]),
+                              nu=GaussianParams(**ad["nu"]))
+        self.step = int(ckpt["step"])
+        if self.exposure is not None and "exposure" in ckpt:
+            self.exposure = ExposureState(**ckpt["exposure"])
+        state_file = path / "trainer_state.json"
+        if state_file.exists():
+            host_state = json.loads(state_file.read_text())
+            self._sampler.set_state(host_state)
+            self.generator.set_state(torch.tensor(
+                list(bytes.fromhex(host_state["generator"])), dtype=torch.uint8))

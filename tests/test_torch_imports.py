@@ -35,6 +35,9 @@ def imported_modules(path: Path):
 def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert f"{PORT}/ops/binning.py" in names and "chip_smoke.py" in names
+    for module in ("training/config.py", "training/densify.py", "training/trainer.py",
+                   "scripts/train.py"):
+        assert f"{PORT}/{module}" in names, module
     assert len(names) >= 20
 
 

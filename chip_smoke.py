@@ -46,11 +46,26 @@ Phases (any failure exits non-zero):
      checkpoint, held-out PSNR 1 dB above the init scene's, steps on no
      cadence syncing no more often than phase 5's bare step, every kernel
      launched.
+  7. the serving and evaluation CLIs in-process at 1920x1080, each with the
+     launch counts set to 0 just before it: the scene generator (24 views of
+     an 80k-splat ``clusters`` GT; 0 dropped pairs, the COLMAP model reads
+     back), eval on phase 6's final PLY and held-out views (mean PSNR within
+     0.1 dB of phase 6's step-600 validation, K1, K2 and K5 launched), a
+     48-frame looped camera path with its GIF, the ``.splat`` export of
+     phase 3's 1M-splat PLY (32 bytes per splat, records matching the PLY)
+     and the view server on it; the oracle at 256x192 and the tiled route
+     at 1080p against the kernel route (1e-4; neither launches a kernel),
+     the tiled route's step gradients against the kernel route's, the render
+     CLI's ``--use-oracle``, and ``profile_render`` at its default operating
+     point (K1 and K2 in its 60-row table, a trace written). A ``serve:``
+     line holds the numbers.
 
-The card's name and power limit come two lines before the last, the
+Phases 3 and 6 keep their PLYs and scene in one temporary directory for
+phase 7. The card's name and power limit come two lines before the last, the
 kernels' JSON record (``max_abs_err`` is the largest |kernel - plain| over
-the kernel's outputs; K1's outputs are integers) on the line before the
-last, and ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
+the kernel's outputs; K1's outputs are integers; ``serve_launches`` holds
+each phase-7 CLI's launches) on the line before the last, and
+``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -344,7 +359,8 @@ def orbit_cameras(w, h, angles=ORBIT):
     return [make_camera(pose, focal, focal, w, h) for pose in orbit_poses(angles)]
 
 
-def phase3():
+def phase3(work: Path):
+    """The render main path; the bench PLY stays in ``work`` for phase 7."""
     import torch
 
     from gaussian_splatting_lightning_tpu_torch import interop
@@ -357,13 +373,12 @@ def phase3():
 
     w, h, blk = 1920, 1080, 32
     made = interop.synthetic_scene(1_000_000, 1_000_000, sh_degree=3, scale=0.008)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "bench_scene.ply")
-        t0 = time.perf_counter()
-        save_ply(made, path)
-        scene = load_ply(path)
-        print(f"ply round trip: {os.path.getsize(path)} bytes in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    path = work / "bench_scene.ply"
+    t0 = time.perf_counter()
+    save_ply(made, path)
+    scene = load_ply(path)
+    print(f"ply round trip: {os.path.getsize(path)} bytes in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("xyz", "features_dc", "features_rest", "opacity", "scales", "quats"):
         if not torch.equal(getattr(made.params, name), getattr(scene.params, name)):
             fail(f"PLY round trip changed {name}")
@@ -481,7 +496,7 @@ def phase3():
     # sort and the slot offsets, apart from the host's launch gaps that the events include
     profile_render(lambda: binning.expand_inputs(prep, gx, gy, 0, gy, blk),
                    stages["expand_inputs (inside build_sorted_bins)"], unit="expand_inputs")
-    return scene, budget, [
+    return scene, budget, path, [
         {"name": "expand_pairs", "route": "cuda",
          "source": f"{PKG}/csrc/expand_pairs.cu",
          "replaces": "gaussian_splatting_lightning_tpu/ops/binning.py:174",
@@ -942,12 +957,14 @@ def write_loop_scene(root, w, h):
     return tiling.max_pairs
 
 
-def phase6(bare_step_syncs: int):
+def phase6(bare_step_syncs: int, work: Path):
     """The training loop through the train CLI at 1080p. Run 1 calls the
     CLI's ``main`` in-process with timers on the step and the events, the
     host syncs counted and 20 steps profiled; run 2 resumes run 1's step-300
     checkpoint through the module entry in a subprocess and must log run 1's
-    losses. Returns run 1's kernel launches."""
+    losses. The scene and the runs stay in ``work`` for phase 7. Returns run
+    1's kernel launches, its run directory, the scene's directory and the
+    step-600 held-out PSNR."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -964,168 +981,167 @@ def phase6(bare_step_syncs: int):
 
     t_phase = time.perf_counter()
     w, h = 1920, 1080
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "scene"
-        gt_budget = write_loop_scene(root, w, h)
-        config = ROOT / "configs" / "rehearsal_synthetic.yaml"
-        sets = dict(LOOP_SETS, **{"data.colmap_path": str(root),
-                                  "data.image_folder": str(root / "images")})
-        cfg = load_config(str(config), [f"{k}={v}" for k, v in sets.items()])
-        train_views, valid_views, xyz, rgb, _ = train_cli.load_views(cfg.data)
-        init = from_points(xyz, rgb, capacity=len(xyz), sh_degree=cfg.sh_degree)
+    root = work / "scene"
+    gt_budget = write_loop_scene(root, w, h)
+    config = ROOT / "configs" / "rehearsal_synthetic.yaml"
+    sets = dict(LOOP_SETS, **{"data.colmap_path": str(root),
+                              "data.image_folder": str(root / "images")})
+    cfg = load_config(str(config), [f"{k}={v}" for k, v in sets.items()])
+    train_views, valid_views, xyz, rgb, _ = train_cli.load_views(cfg.data)
+    init = from_points(xyz, rgb, capacity=len(xyz), sh_degree=cfg.sh_degree)
 
-        def cams(views):
-            return [camera_from_matrices(v.viewmatrix, v.projmatrix, v.campos, v.tanfovx,
-                                         v.tanfovy) for v in views]
+    def cams(views):
+        return [camera_from_matrices(v.viewmatrix, v.projmatrix, v.campos, v.tanfovx,
+                                     v.tanfovy) for v in views]
 
-        est = pair_budget(init, cams(train_views), w, h)
-        sets["train.tiling.max_pairs"] = max(8192, round(est / 2 / 8192) * 8192)
-        # the init scene's held-out PSNR, as the trainer's validate measures it
-        ev = tr.make_eval_step(dataclasses.replace(cfg.train, tiling=TilingConfig(
-            max_pairs=pair_budget(init, cams(valid_views), w, h))), w, h)
-        init_psnr = []
-        for v, cam in zip(valid_views, cams(valid_views)):
-            _, _, logs = ev(init, cam, torch.from_numpy(v.image).cuda(),
-                            torch.from_numpy(v.background).cuda())
-            if int(logs["num_dropped_pairs"]):
-                fail("phase 6: the init scene's held-out render dropped pairs")
-            init_psnr.append(float(logs["psnr"]))
-        init_psnr = float(np.mean(init_psnr))
-        del init, ev
-        argv = ["-c", str(config), "--out-dir", str(Path(tmp) / "runs"), "--device", "cuda"]
-        for k, v in sets.items():
-            argv += ["--set", f"{k}={v}"]
-        print(f"loop scene: {LOOP_GT} GT splats, {len(train_views)} train / "
-              f"{len(valid_views)} held-out views at {w}x{h}, {len(xyz)} init points, "
-              f"GT pair budget {gt_budget}, init estimate {est}, start budget "
-              f"{sets['train.tiling.max_pairs']}, init held-out PSNR {init_psnr:.3f}",
-              flush=True)
-        del train_views, valid_views
+    est = pair_budget(init, cams(train_views), w, h)
+    sets["train.tiling.max_pairs"] = max(8192, round(est / 2 / 8192) * 8192)
+    # the init scene's held-out PSNR, as the trainer's validate measures it
+    ev = tr.make_eval_step(dataclasses.replace(cfg.train, tiling=TilingConfig(
+        max_pairs=pair_budget(init, cams(valid_views), w, h))), w, h)
+    init_psnr = []
+    for v, cam in zip(valid_views, cams(valid_views)):
+        _, _, logs = ev(init, cam, torch.from_numpy(v.image).cuda(),
+                        torch.from_numpy(v.background).cuda())
+        if int(logs["num_dropped_pairs"]):
+            fail("phase 6: the init scene's held-out render dropped pairs")
+        init_psnr.append(float(logs["psnr"]))
+    init_psnr = float(np.mean(init_psnr))
+    del init, ev
+    argv = ["-c", str(config), "--out-dir", str(work / "runs"), "--device", "cuda"]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    print(f"loop scene: {LOOP_GT} GT splats, {len(train_views)} train / "
+          f"{len(valid_views)} held-out views at {w}x{h}, {len(xyz)} init points, "
+          f"GT pair budget {gt_budget}, init estimate {est}, start budget "
+          f"{sets['train.tiling.max_pairs']}, init held-out PSNR {init_psnr:.3f}",
+          flush=True)
+    del train_views, valid_views
 
-        # ---- run 1: the CLI in-process, instrumented -------------------
-        rec = {"calls": {}, "events": [], "budget_at_save": {}, "last": -1, "prof": []}
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # ---- run 1: the CLI in-process, instrumented -------------------
+    rec = {"calls": {}, "events": [], "budget_at_save": {}, "last": -1, "prof": []}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-        def make_timed(*a, **k):
-            step_fn = orig["make_train_step"](*a, **k)
+    def make_timed(*a, **k):
+        step_fn = orig["make_train_step"](*a, **k)
 
-            def timed(scene, adam, step, *rest, **kw):
-                if step in LOOP_PROFILE and len(rec["prof"]) < 2:
-                    torch.cuda.synchronize()
-                    rec["prof"].append(time.perf_counter())
-                    (prof.start if len(rec["prof"]) == 1 else prof.stop)()
-                rec["calls"].setdefault(step, (time.perf_counter(), len(caught)))
-                rec["last"] = step
-                return step_fn(scene, adam, step, *rest, **kw)
-
-            return timed
-
-        def timed(name, fn, method=False):
-            def wrapped(*a, **k):
+        def timed(scene, adam, step, *rest, **kw):
+            if step in LOOP_PROFILE and len(rec["prof"]) < 2:
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*a, **k)
-                torch.cuda.synchronize()
-                step = a[0].step if method else rec["last"] + 1
-                rec["events"].append({"event": name, "step": step,
-                                      "ms": (time.perf_counter() - t0) * 1e3})
-                if name == "densify_and_prune":
-                    rec["events"][-1]["stats"] = {k: int(v) for k, v in out[2].items()}
-                if name == "save_checkpoint":
-                    rec["budget_at_save"][step] = a[0].cfg.tiling.max_pairs
-                return out
+                rec["prof"].append(time.perf_counter())
+                (prof.start if len(rec["prof"]) == 1 else prof.stop)()
+            rec["calls"].setdefault(step, (time.perf_counter(), len(caught)))
+            rec["last"] = step
+            return step_fn(scene, adam, step, *rest, **kw)
 
-            return wrapped
+        return timed
 
-        orig = {"make_train_step": tr.make_train_step, "densify_step": tr.densify_step,
-                "opacity_reset_step": tr.opacity_reset_step,
-                "validate": tr.Trainer.validate, "save_checkpoint": tr.Trainer.save_checkpoint}
-        tr.make_train_step = make_timed
-        tr.densify_step = timed("densify_and_prune", orig["densify_step"])
-        tr.opacity_reset_step = timed("reset_opacity", orig["opacity_reset_step"])
-        tr.Trainer.validate = timed("validate", orig["validate"], method=True)
-        tr.Trainer.save_checkpoint = timed("save_checkpoint", orig["save_checkpoint"],
-                                           method=True)
-        tee = Tee()
-        _build.reset_launch_counts()
-        t_run1 = time.perf_counter()
-        try:
-            with count_syncs() as caught, contextlib.redirect_stdout(tee):
-                trainer = train_cli.main(argv)
-        finally:
-            for name in ("make_train_step", "densify_step", "opacity_reset_step"):
-                setattr(tr, name, orig[name])
-            tr.Trainer.validate = orig["validate"]
-            tr.Trainer.save_checkpoint = orig["save_checkpoint"]
-        run1_s = time.perf_counter() - t_run1
-        launches = dict(_build.launches)
-        if any(v < 1 for v in launches.values()):
-            fail(f"phase 6: a kernel was not launched by the training loop: {launches}")
-        text = "".join(tee.parts)
-        hist = {r["step"]: r for r in trainer.history}
-        run_dir = trainer.out_dir
-        del trainer
-        torch.cuda.empty_cache()
+    def timed(name, fn, method=False):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            step = a[0].step if method else rec["last"] + 1
+            rec["events"].append({"event": name, "step": step,
+                                  "ms": (time.perf_counter() - t0) * 1e3})
+            if name == "densify_and_prune":
+                rec["events"][-1]["stats"] = {k: int(v) for k, v in out[2].items()}
+            if name == "save_checkpoint":
+                rec["budget_at_save"][step] = a[0].cfg.tiling.max_pairs
+            return out
 
-        # ---- checks of run 1 -------------------------------------------
-        bad = [s for s, r in hist.items() if not math.isfinite(r["loss"])]
-        if bad or sorted(hist) != list(range(0, 600, 50)):
-            fail(f"phase 6: logged steps {sorted(hist)}, non-finite loss at {bad}")
-        growths = re.findall(r"\[tiling\] step (\d+): pair budget overflow, growing "
-                             r"max_pairs to (\d+)", text)
-        if not growths:
-            fail("phase 6: the pair budget never grew")
-        if hist[550]["num_dropped_pairs"] != 0:
-            fail(f"phase 6: {hist[550]['num_dropped_pairs']} pairs dropped at the last check")
-        alive = {s: int(r["n_gaussians"]) for s, r in sorted(hist.items())}
-        if not alive[200] > alive[150]:
-            fail(f"phase 6: no splats added by the step-200 densify event: {alive}")
-        final = torch.load(run_dir / "ckpt-00000600" / "state.pt", map_location="cpu",
-                           weights_only=True, mmap=True)
-        if final["scene"]["active_sh_degree"] != 3:
-            fail(f"phase 6: active SH degree {final['scene']['active_sh_degree']} in the "
-                 "final checkpoint")
-        del final
-        valid = [json.loads(x) for x in (run_dir / "valid_log.jsonl").read_text().splitlines()]
-        final_psnr = valid[-1]["valid_psnr"]
-        if valid[-1]["step"] != 600 or not final_psnr >= init_psnr + 1.0:
-            fail(f"phase 6: held-out PSNR {final_psnr} at step {valid[-1]['step']}, init "
-                 f"{init_psnr}")
+        return wrapped
 
-        # host syncs and wall time of the steps on no cadence
-        calls = rec["calls"]
-        quiet = [t for t in range(30, 599) if t % 50 and (t + 1) % 100 and t + 1 in calls
-                 and not LOOP_PROFILE[0] - 2 <= t <= LOOP_PROFILE[1] + 1]
-        walls = [(calls[t + 1][0] - calls[t][0]) * 1e3 for t in quiet]
-        syncs = [n_syncs(caught[calls[t][1]:calls[t + 1][1]]) for t in quiet]
-        if max(syncs) > bare_step_syncs:
-            fail(f"phase 6: a step on no cadence synced {max(syncs)} times, the bare step "
-                 f"{bare_step_syncs}")
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        window_ms = (rec["prof"][1] - rec["prof"][0]) * 1e3
-        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    orig = {"make_train_step": tr.make_train_step, "densify_step": tr.densify_step,
+            "opacity_reset_step": tr.opacity_reset_step,
+            "validate": tr.Trainer.validate, "save_checkpoint": tr.Trainer.save_checkpoint}
+    tr.make_train_step = make_timed
+    tr.densify_step = timed("densify_and_prune", orig["densify_step"])
+    tr.opacity_reset_step = timed("reset_opacity", orig["opacity_reset_step"])
+    tr.Trainer.validate = timed("validate", orig["validate"], method=True)
+    tr.Trainer.save_checkpoint = timed("save_checkpoint", orig["save_checkpoint"],
+                                       method=True)
+    tee = Tee()
+    _build.reset_launch_counts()
+    t_run1 = time.perf_counter()
+    try:
+        with count_syncs() as caught, contextlib.redirect_stdout(tee):
+            trainer = train_cli.main(argv)
+    finally:
+        for name in ("make_train_step", "densify_step", "opacity_reset_step"):
+            setattr(tr, name, orig[name])
+        tr.Trainer.validate = orig["validate"]
+        tr.Trainer.save_checkpoint = orig["save_checkpoint"]
+    run1_s = time.perf_counter() - t_run1
+    launches = dict(_build.launches)
+    if any(v < 1 for v in launches.values()):
+        fail(f"phase 6: a kernel was not launched by the training loop: {launches}")
+    text = "".join(tee.parts)
+    hist = {r["step"]: r for r in trainer.history}
+    run_dir = trainer.out_dir
+    del trainer
+    torch.cuda.empty_cache()
 
-        # ---- run 2: resume at step 300 in a subprocess -----------------
-        budget300 = rec["budget_at_save"][300]
-        argv2 = argv + ["--resume", str(run_dir / "ckpt-00000300"), "--iters", "300",
-                        "--set", f"train.tiling.max_pairs={budget300}",
-                        "--set", "run_name=resume"]
-        t_run2 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", f"{PKG}.scripts.train"] + argv2,
-                             cwd=ROOT, capture_output=True, text=True, timeout=600)
-        run2_s = time.perf_counter() - t_run2
-        print("resume: " + " | ".join(res.stdout.strip().splitlines()[-6:]), flush=True)
-        if res.returncode != 0:
-            fail(f"phase 6: the resumed run exited {res.returncode}: {res.stderr[-2000:]}")
-        (run2_dir,) = (run_dir.parent).glob("resume-*")
-        hist2 = {r["step"]: r for r in map(json.loads, (run2_dir / "train_log.jsonl")
-                                            .read_text().splitlines())}
-        if sorted(hist2) != list(range(300, 600, 50)):
-            fail(f"phase 6: the resumed run logged steps {sorted(hist2)}")
-        loss_diff = max(abs(hist2[s]["loss"] - hist[s]["loss"]) / hist[s]["loss"]
-                        for s in hist2)
-        alive2 = {s: int(r["n_gaussians"]) for s, r in hist2.items()}
+    # ---- checks of run 1 -------------------------------------------
+    bad = [s for s, r in hist.items() if not math.isfinite(r["loss"])]
+    if bad or sorted(hist) != list(range(0, 600, 50)):
+        fail(f"phase 6: logged steps {sorted(hist)}, non-finite loss at {bad}")
+    growths = re.findall(r"\[tiling\] step (\d+): pair budget overflow, growing "
+                         r"max_pairs to (\d+)", text)
+    if not growths:
+        fail("phase 6: the pair budget never grew")
+    if hist[550]["num_dropped_pairs"] != 0:
+        fail(f"phase 6: {hist[550]['num_dropped_pairs']} pairs dropped at the last check")
+    alive = {s: int(r["n_gaussians"]) for s, r in sorted(hist.items())}
+    if not alive[200] > alive[150]:
+        fail(f"phase 6: no splats added by the step-200 densify event: {alive}")
+    final = torch.load(run_dir / "ckpt-00000600" / "state.pt", map_location="cpu",
+                       weights_only=True, mmap=True)
+    if final["scene"]["active_sh_degree"] != 3:
+        fail(f"phase 6: active SH degree {final['scene']['active_sh_degree']} in the "
+             "final checkpoint")
+    del final
+    valid = [json.loads(x) for x in (run_dir / "valid_log.jsonl").read_text().splitlines()]
+    final_psnr = valid[-1]["valid_psnr"]
+    if valid[-1]["step"] != 600 or not final_psnr >= init_psnr + 1.0:
+        fail(f"phase 6: held-out PSNR {final_psnr} at step {valid[-1]['step']}, init "
+             f"{init_psnr}")
+
+    # host syncs and wall time of the steps on no cadence
+    calls = rec["calls"]
+    quiet = [t for t in range(30, 599) if t % 50 and (t + 1) % 100 and t + 1 in calls
+             and not LOOP_PROFILE[0] - 2 <= t <= LOOP_PROFILE[1] + 1]
+    walls = [(calls[t + 1][0] - calls[t][0]) * 1e3 for t in quiet]
+    syncs = [n_syncs(caught[calls[t][1]:calls[t + 1][1]]) for t in quiet]
+    if max(syncs) > bare_step_syncs:
+        fail(f"phase 6: a step on no cadence synced {max(syncs)} times, the bare step "
+             f"{bare_step_syncs}")
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    window_ms = (rec["prof"][1] - rec["prof"][0]) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+
+    # ---- run 2: resume at step 300 in a subprocess -----------------
+    budget300 = rec["budget_at_save"][300]
+    argv2 = argv + ["--resume", str(run_dir / "ckpt-00000300"), "--iters", "300",
+                    "--set", f"train.tiling.max_pairs={budget300}",
+                    "--set", "run_name=resume"]
+    t_run2 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"{PKG}.scripts.train"] + argv2,
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    run2_s = time.perf_counter() - t_run2
+    print("resume: " + " | ".join(res.stdout.strip().splitlines()[-6:]), flush=True)
+    if res.returncode != 0:
+        fail(f"phase 6: the resumed run exited {res.returncode}: {res.stderr[-2000:]}")
+    (run2_dir,) = (run_dir.parent).glob("resume-*")
+    hist2 = {r["step"]: r for r in map(json.loads, (run2_dir / "train_log.jsonl")
+                                        .read_text().splitlines())}
+    if sorted(hist2) != list(range(300, 600, 50)):
+        fail(f"phase 6: the resumed run logged steps {sorted(hist2)}")
+    loss_diff = max(abs(hist2[s]["loss"] - hist[s]["loss"]) / hist[s]["loss"]
+                    for s in hist2)
+    alive2 = {s: int(r["n_gaussians"]) for s, r in hist2.items()}
 
     wall = sorted(walls)[len(walls) // 2]
     steps = LOOP_PROFILE[1] - LOOP_PROFILE[0]
@@ -1150,6 +1166,252 @@ def phase6(bare_step_syncs: int):
     if not loss_diff <= LOOP_LOSS_TOL:
         fail(f"phase 6: the resumed run's losses differ from run 1's by {loss_diff} "
              f"relative (> {LOOP_LOSS_TOL})")
+    return launches, run_dir, root, final_psnr
+
+
+# phase 7: the serving and evaluation entry points at 1920x1080
+SERVE_VIEWS, SERVE_GT = 24, 80_000  # the JAX generator's default operating point
+SERVE_FRAMES = 48
+EVAL_PSNR_TOL = 0.1  # eval (render clipped to [0, 1]) against phase 6's validation
+ORACLE_SPLATS = 2_000
+
+
+def run_counted(fn, *args):
+    """``fn(*args)`` with the launch counts set to 0 just before it; returns
+    its result, the launches it made and its wall seconds."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(_build.launches), time.perf_counter() - t0
+
+
+def phase7(work: Path, run_dir: Path, scene_dir: Path, loop_psnr: float, bench_ply: Path):
+    """The generator, eval, render-path, export, view and profiler CLIs on
+    the card, in-process, each with the launch counts set to 0 just before
+    it; then the oracle and the tiled route against the kernel route.
+    Returns each CLI's kernel launches."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.core.camera import camera_from_matrices
+    from gaussian_splatting_lightning_tpu_torch.data.dataset import ColmapDataset
+    from gaussian_splatting_lightning_tpu_torch.models import load_ply
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
+    from gaussian_splatting_lightning_tpu_torch.models.ply import read_gaussian_ply
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.ops.rasterize_reference import (
+        rasterize_reference,
+    )
+    from gaussian_splatting_lightning_tpu_torch.ops.rasterize_tiled import rasterize_tiled
+    from gaussian_splatting_lightning_tpu_torch.scripts import eval as eval_cli
+    from gaussian_splatting_lightning_tpu_torch.scripts import export_splat as export_cli
+    from gaussian_splatting_lightning_tpu_torch.scripts import make_synthetic_scene as gen_cli
+    from gaussian_splatting_lightning_tpu_torch.scripts import profile_render as prof_cli
+    from gaussian_splatting_lightning_tpu_torch.scripts import render as render_cli
+    from gaussian_splatting_lightning_tpu_torch.scripts import render_path as path_cli
+    from gaussian_splatting_lightning_tpu_torch.scripts import view as view_cli
+    from gaussian_splatting_lightning_tpu_torch.training import trainer as tr
+    from gaussian_splatting_lightning_tpu_torch.viewer import VIEWER_HTML
+
+    t_phase = time.perf_counter()
+    w, h = 1920, 1080
+    ply = run_dir / "point_cloud-final.ply"
+    launches, row = {}, {}
+
+    def kernels_ran(name, counts, kernels):
+        launches[name] = counts
+        if any(counts[k] < 1 for k in kernels):
+            fail(f"phase 7: {name} did not launch {kernels}: {counts}")
+
+    # (a) the generator at the JAX generator's default operating point
+    gen_dir = work / "gen"
+    gen, counts, gen_s = run_counted(gen_cli.main, [
+        "--out", str(gen_dir), "--n-views", str(SERVE_VIEWS), "--width", str(w),
+        "--height", str(h), "--n-splats", str(SERVE_GT), "--device", "cuda"])
+    kernels_ran("generator", counts, RENDER_KERNELS)
+    pngs = sorted((gen_dir / "images").glob("*.png"))
+    ds = ColmapDataset(str(gen_dir), str(gen_dir / "images"), preload_data=False)
+    if len(pngs) != SERVE_VIEWS or len(ds) != SERVE_VIEWS:
+        fail(f"phase 7: the generator wrote {len(pngs)} PNGs, {len(ds)} COLMAP views")
+    if ds[SERVE_VIEWS - 1].image.shape != (3, h, w) or len(ds.reconstruction.points_xyz) != 20_000:
+        fail("phase 7: the generated COLMAP model does not read back")
+    if any(gen["dropped"]):
+        fail(f"phase 7: generator views dropped pairs: {gen['dropped']}")
+    row["generator"] = {"s_per_view": gen_s / SERVE_VIEWS, "seconds": gen_s,
+                        "max_pairs": gen["max_pairs"], "render_ms": gen["render_ms"]}
+
+    # (b) eval on phase 6's final scene and its held-out views
+    out_json = work / "eval.json"
+    res, counts, eval_s = run_counted(eval_cli.main, [
+        str(ply), "--colmap", str(scene_dir), "--image-folder", str(scene_dir / "images"),
+        "--holdout-every", "8", "--out", str(out_json), "--device", "cuda"])
+    kernels_ran("eval", counts, RENDER_KERNELS + ("blur",))
+    if json.loads(out_json.read_text()) != res or len(res["views"]) != 3:
+        fail(f"phase 7: eval gave {len(res['views'])} views or a different --out file")
+    psnr_diff = res["mean"]["psnr"] - loop_psnr
+    if not abs(psnr_diff) <= EVAL_PSNR_TOL:
+        fail(f"phase 7: eval PSNR {res['mean']['psnr']} vs phase 6's held-out {loop_psnr}")
+    if not all(0.0 <= v["ssim"] <= 1.0 for v in res["views"]):
+        fail(f"phase 7: SSIM outside [0, 1]: {res['views']}")
+    row["eval"] = {"mean": res["mean"], "loop_psnr": loop_psnr, "psnr_diff": psnr_diff,
+                   "render_ms": [v["render_ms"] for v in res["views"]], "seconds": eval_s}
+
+    # (c) a looped camera path through the same scene, with a GIF
+    frames_dir, gif = work / "path", work / "path.gif"
+    res, counts, path_s = run_counted(path_cli.main, [
+        str(ply), "--colmap", str(scene_dir), "--image-folder", str(scene_dir / "images"),
+        "--n-frames", str(SERVE_FRAMES), "--loop", "--out", str(frames_dir), "--gif",
+        str(gif), "--device", "cuda"])
+    kernels_ran("render_path", counts, RENDER_KERNELS)
+    n_png = len(list(frames_dir.glob("frame_*.png")))
+    with Image.open(gif) as im:
+        gif_frames, gif_size = im.n_frames, im.size
+    if n_png != SERVE_FRAMES or gif_frames != SERVE_FRAMES or gif_size != (w, h):
+        fail(f"phase 7: {n_png} PNG frames, a GIF of {gif_frames} frames at {gif_size}")
+    if res["dropped_pairs"]:
+        fail(f"phase 7: the camera path dropped {res['dropped_pairs']} pairs")
+    ev = sorted(res["event_ms"])
+    row["render_path"] = {"frame_ms_events_median": ev[len(ev) // 2],
+                          "frame_ms_events_min": ev[0], "frame_ms_events_max": ev[-1],
+                          "frame_wall": res["wall"], "max_pairs": res["max_pairs"],
+                          "gif_bytes": os.path.getsize(gif), "seconds": path_s}
+
+    # (d) export the 1M-splat bench PLY of phase 3
+    splat = work / "bench.splat"
+    n, _, export_s = run_counted(export_cli.main, [str(bench_ply), "--out", str(splat),
+                                                  "--device", "cuda"])
+    data = splat.read_bytes()
+    if n != 1_000_000 or len(data) != 32 * 1_000_000:
+        fail(f"phase 7: exported {n} splats in {len(data)} bytes")
+    src = read_gaussian_ply(bench_ply)
+    for k in (0, n - 1):  # the record's splat, found by its position
+        rec = np.frombuffer(data[32 * k:32 * k + 24], np.float32)
+        (hit,) = np.nonzero((src["xyz"] == rec[:3]).all(axis=1))
+        if len(hit) != 1 or not np.array_equal(np.exp(src["scales"][hit[0]]), rec[3:6]):
+            fail(f"phase 7: .splat record {k} matches no PLY splat's position and scale")
+    row["export"] = {"splats": n, "bytes": len(data), "seconds": export_s}
+
+    # (e) the view server on the exported file
+    server, n_bytes = view_cli.make_server(str(splat), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        page = urllib.request.urlopen(url + "/", timeout=30).read()
+        blob = urllib.request.urlopen(url + "/scene.splat", timeout=60).read()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if page != VIEWER_HTML.read_bytes() or blob != data or n_bytes != len(data):
+        fail("phase 7: the view server did not serve the viewer page and the .splat")
+    if thread.is_alive():
+        fail("phase 7: the view server did not stop")
+    row["view"] = {"html_bytes": len(page), "splat_bytes": len(blob)}
+
+    # (f) the oracle against the kernel route, and the render CLI on it
+    ow, oh = 256, 192
+    small = interop.synthetic_scene(ORACLE_SPLATS, ORACLE_SPLATS, aniso=True, seed=7)
+    cam = interop.camera(ow, oh)
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    x = (small.params.xyz, small.get_opacity(), small.get_scales(), small.get_rotation(),
+         small.get_features(), cam, ow, oh, bg, small.active_sh_degree)
+    kw = dict(max_sh_degree=small.max_sh_degree, alive=small.alive)
+    small_tiling = TilingConfig(max_pairs=1 << 18, tile_capacity=1024, chunk=64)
+    with torch.no_grad():
+        ref, _ = tr.resolve_rasterizer("cuda")(*x, config=small_tiling, **kw)
+        oracle, counts, oracle_s = run_counted(lambda: rasterize_reference(*x, **kw))
+    if any(counts.values()):
+        fail(f"phase 7: the oracle launched kernels: {counts}")
+    oracle_err = max(float((oracle.image - ref.image).abs().max()),
+                     float((oracle.depth - ref.depth).abs().max()))
+    if not oracle_err <= K2_TOL:
+        fail(f"phase 7: the oracle differs from the kernel route by {oracle_err}")
+    _, _, oracle_cli_s = run_counted(render_cli.main, [
+        str(ply), "--colmap", str(scene_dir), "--image-folder", str(scene_dir / "images"),
+        "--downscale", "0.125", "--use-oracle", "--out", str(work / "oracle.png"),
+        "--device", "cuda"])
+    row["oracle"] = {"max_abs_err": oracle_err, "ms_256x192": oracle_s * 1e3,
+                     "render_cli_s": oracle_cli_s}
+
+    # (g) the tiled route: one held-out view of phase 6's scene at 1080p ...
+    scene = load_ply(str(ply))
+    view = ColmapDataset(str(scene_dir), str(scene_dir / "images"), preload_data=False)[8]
+    vcam = camera_from_matrices(view.viewmatrix, view.projmatrix, view.campos,
+                                view.tanfovx, view.tanfovy)
+    vbg = torch.zeros(3, device="cuda")
+    tiling = TilingConfig(max_pairs=1 << 22, tile_capacity=4096, chunk=64)
+
+    def tiled_render():
+        return tr.render_scene(scene, vcam, w, h, vbg, tiling, rasterize_fn=rasterize_tiled)
+
+    with torch.no_grad():
+        # the device's share of a camera-path frame: the same render on the
+        # path's budget, profiled, against the path's median host wall
+        path_tiling = TilingConfig(max_pairs=row["render_path"]["max_pairs"])
+        profile_render(lambda: tr.render_scene(scene, vcam, w, h, vbg, path_tiling),
+                       row["render_path"]["frame_wall"]["p50_ms"], unit="path_frame")
+        ref, ref_stats = tr.render_scene(scene, vcam, w, h, vbg, tiling)
+        tiled_render()  # warm-up: allocator
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        (tiled, stats), counts, tiled_s = run_counted(tiled_render)
+        peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()) or int(ref_stats["num_dropped_pairs"]):
+        fail(f"phase 7: tiled route launched {counts}, kernel route dropped pairs")
+    tiled_err = max(float((tiled.image - ref.image).abs().max()),
+                    float((tiled.depth - ref.depth).abs().max()))
+    stats = {k: int(v) for k, v in stats.items()}
+    if not tiled_err <= K2_TOL or stats["num_tile_overflow"] or stats["num_dropped_pairs"]:
+        fail(f"phase 7: tiled route at 1080p: error {tiled_err}, stats {stats}")
+    del scene, tiled, ref
+    # ... and its gradients at 256x192 on the 2k scene
+    target = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(3, oh, ow)).astype(np.float32)).cuda()
+    grads = {}
+    for route in ("cuda", "xla"):
+        g, screen, *_ = tr.step_gradients(tr.TrainConfig(rasterizer=route, tiling=small_tiling),
+                                          small, cam, ow, oh, target, bg)
+        grads[route] = dict({k: getattr(g, k) for k in PARAM_NAMES}, means2d_ndc_offset=screen)
+    grad_err = {}
+    for k, b in grads["cuda"].items():
+        a = grads["xla"][k]
+        scale = float(b.abs().max())
+        grad_err[k] = float((a - b).abs().max()) / scale if scale > 0 else float(a.abs().max())
+    if not all(v <= STEP_GRAD_TOL for v in grad_err.values()):
+        fail(f"phase 7: tiled-route gradients differ from the kernel route's: {grad_err}")
+    row["tiled"] = {"max_abs_err_1080p": tiled_err, "ms_1080p": tiled_s * 1e3,
+                    "peak_mem_bytes_1080p": peak, "mem_bytes_before": base_mem,
+                    "stats_1080p": stats, "grad_rel_err": grad_err}
+
+    # (h) the profiler CLI at its default operating point, and its trace; its
+    # table runs to 60 rows, since K1 (~0.005 ms here) ranks below the top 20
+    trace_dir = work / "trace"
+    (rows, _), counts, prof_s = run_counted(prof_cli.main, ["--trace-dir", str(trace_dir),
+                                                            "--top", "60"])
+    kernels_ran("profile_render", counts, RENDER_KERNELS)
+    names = " ".join(r[0] for r in rows)
+    traces = list(trace_dir.glob("trace-*.json"))
+    if "expand_pairs_kernel" not in names or "composite_fwd_kernel" not in names:
+        fail(f"phase 7: the profiler's table lacks K1 or K2: {names[:500]}")
+    if len(traces) != 1 or traces[0].stat().st_size == 0:
+        fail(f"phase 7: trace files {traces}")
+    row["profile_render"] = {"top": [[r[0][:60], r[1], r[2]] for r in rows[:6]],
+                             "trace_bytes": traces[0].stat().st_size, "seconds": prof_s}
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    print("serve: " + json.dumps(row), flush=True)
     return launches
 
 
@@ -1173,14 +1435,18 @@ def main() -> int:
     t0 = time.perf_counter()
     probe()
     phase2()
-    scene, budget, kernels = phase3()
-    phase4()
-    bare_step_syncs, step_kernels = phase5(scene, budget)
-    kernels += step_kernels
-    del scene
-    loop_launches = phase6(bare_step_syncs)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        scene, budget, bench_ply, kernels = phase3(work)
+        phase4()
+        bare_step_syncs, step_kernels = phase5(scene, budget)
+        kernels += step_kernels
+        del scene
+        loop_launches, run_dir, scene_dir, loop_psnr = phase6(bare_step_syncs, work)
+        serve_launches = phase7(work, run_dir, scene_dir, loop_psnr, bench_ply)
     for row in kernels:
         row["loop_launches"] = loop_launches[row["name"]]
+        row["serve_launches"] = {cli: n[row["name"]] for cli, n in serve_launches.items()}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

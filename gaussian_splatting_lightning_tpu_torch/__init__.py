@@ -7,15 +7,19 @@ module paths and public names so each function's counterpart is easy to find.
 - ``ops``       preprocess, budget, binning (CUDA kernel K1), the compositor
                 (K2 forward; K3 and K4 backward) and SSIM (K5);
                 ``ops/_build.py`` builds the kernels from ``csrc/`` with
-                ``nvcc`` at first use
+                ``nvcc`` at first use; the readable oracle rasterizer and
+                the tiled route (``train.rasterizer: xla``), plain PyTorch
 - ``models``    the padded-capacity ``GaussianScene`` (``reset_opacity``, SH
-                warm-up) and PLY interchange
+                warm-up), PLY interchange and ``.splat`` export
 - ``data``      COLMAP / Blender parsing and view datasets (numpy)
 - ``training``  the training step (render, loss, backward, Adam, densification
                 statistics), densify/prune, the ``Trainer`` loop (cadences,
                 adaptive budgets, NaN rollback, validation, checkpoints) and
                 the YAML run configuration
-- ``scripts``   the train and render CLIs
+- ``scripts``   the train, render, eval, scene-generator, camera-path,
+                ``.splat`` export, viewer and profiler CLIs
+- ``viewer``    the browser viewer page the view CLI serves
+- ``utils``     the ``torch.profiler`` trace context and a step timer
 - ``interop``   carries weights, Adam state and cameras over from numpy / the
                 JAX fields
 

@@ -297,10 +297,11 @@ def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
 
 
 def write_reconstruction(root, cameras: dict, images: dict,
-                         points_xyz=None, points_rgb=None) -> None:
+                         points_xyz=None, points_rgb=None, error: float = 0.0) -> None:
     """Write a binary COLMAP model: cameras {id: (w, h, fx, fy, cx, cy)}
     (PINHOLE), images {id: (qvec wxyz, tvec, camera_id, name)} and an
-    optional point cloud (N, 3) with colours in [0, 1]."""
+    optional point cloud (N, 3) with colours in [0, 1], each point with the
+    reprojection ``error`` given and an empty track."""
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
     with open(root / "cameras.bin", "wb") as f:
@@ -323,5 +324,5 @@ def write_reconstruction(root, cameras: dict, images: dict,
     with open(root / "points3D.bin", "wb") as f:
         f.write(struct.pack("<Q", len(points_xyz)))
         for i, (p, c) in enumerate(zip(np.asarray(points_xyz, np.float64), rgb8)):
-            f.write(struct.pack("<Q3d3Bd", i, *p, *c, 0.0))
+            f.write(struct.pack("<Q3d3Bd", i, *p, *c, error))
             f.write(struct.pack("<Q", 0))  # empty track

@@ -1,4 +1,4 @@
-"""The splat store and PLY interchange."""
+"""The splat store, PLY interchange and ``.splat`` export."""
 
 from gaussian_splatting_lightning_tpu_torch.models.gaussians import (  # noqa: F401
     DEAD_OPACITY_LOGIT,
@@ -9,4 +9,8 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import (  # noqa: F
     from_points,
     load_ply,
     save_ply,
+)
+from gaussian_splatting_lightning_tpu_torch.models.splat_export import (  # noqa: F401
+    save_splat,
+    scene_to_splat_bytes,
 )

@@ -2,7 +2,9 @@
 
 Counterpart of ``gaussian_splatting_lightning_tpu/ops/binning.py``
 (``_expand_keys``, ``expand_pairs_pallas``, ``build_sorted_bins``,
-``grid_shape``). The design is the JAX package's:
+``grid_shape``, and the tiled route's ``owner_of_slot``, ``TileBins``,
+``build_tile_bins`` and ``build_tile_table``). The design is the JAX
+package's:
 
 1. Sort splats by view depth once (stable); splats with no tile sort last.
    Per-tile depth order is then a subsequence of the global order.
@@ -15,7 +17,10 @@ Counterpart of ``gaussian_splatting_lightning_tpu/ops/binning.py``
 4. Tile ranges come from T+1 searchsorted queries over the sorted keys.
 
 Only step 2 is a kernel; the sorts and searches are PyTorch on the device,
-as they were XLA outside any kernel in the JAX package.
+as they were XLA outside any kernel in the JAX package. ``build_tile_bins``
+is the tiled route's binning (``ops/rasterize_tiled.py``): the same stages
+in plain PyTorch with no cull, its pairs then laid out per tile by
+``build_tile_table``.
 """
 
 from __future__ import annotations
@@ -79,6 +84,111 @@ class SortedBins(NamedTuple):
 def grid_shape(width: int, height: int, block_x: int = BLOCK_X,
                block_y: int = BLOCK_Y):
     return -(-width // block_x), -(-height // block_y)
+
+
+def owner_of_slot(starts: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """For ascending ``starts`` (K,), map each slot in [0, n_slots) to the
+    largest k with starts[k] <= slot, -1 before ``starts[0]``; zero-width
+    runs (duplicate starts) resolve to the last owner. (The JAX function
+    gets the same answer from a scatter-max and a cumulative max.)"""
+    slots = torch.arange(n_slots, dtype=starts.dtype, device=starts.device)
+    return torch.searchsorted(starts, slots, right=True, out_int32=True) - 1
+
+
+class TileBins(NamedTuple):
+    """Depth-then-tile ordered (splat, tile) pairs with per-tile ranges."""
+
+    pair_gaussian: torch.Tensor  # (M,) int32 index into the original arrays
+    pair_tile: torch.Tensor  # (M,) int32 tile id; == n_tiles for padding
+    pair_valid: torch.Tensor  # (M,) bool
+    tile_start: torch.Tensor  # (T,) int32 offset into pair arrays
+    tile_count: torch.Tensor  # (T,) int32
+    num_pairs: torch.Tensor  # () int32: total pairs before the budget cap
+    num_dropped: torch.Tensor  # () int32 pairs dropped by the budget
+
+
+def build_tile_bins(
+    prep: Preprocessed,
+    grid_x: int,
+    grid_y: int,
+    max_pairs: int,
+    tile_y_offset: int = 0,
+    grid_y_local: int | None = None,
+) -> TileBins:
+    """Every (splat, tile) pair of the splats' 16 px rects, depth order within
+    each tile, in a static budget of ``max_pairs`` slots: a full budget
+    drops the farthest splats' pairs. ``tile_y_offset``/``grid_y_local``
+    restrict binning to a band of tile rows (tile ids local to the band)."""
+    n = prep.depth.shape[0]
+    if grid_y_local is None:
+        grid_y_local = grid_y
+    n_tiles = grid_x * grid_y_local
+    dev = prep.depth.device
+
+    x0, y0g, x1, y1g = tf.tile_rect(prep.p_pix.detach(), prep.radius_bin.detach(),
+                                    grid_x, grid_y)
+    y0 = torch.clamp(y0g - tile_y_offset, 0, grid_y_local)
+    y1 = torch.clamp(y1g - tile_y_offset, 0, grid_y_local)
+    nx = torch.clamp_min(x1 - x0, 0)
+    ny = torch.clamp_min(y1 - y0, 0)
+    ntiles = torch.where(prep.visible, nx * ny, torch.zeros_like(nx))
+
+    # (1) global depth sort; culled splats last
+    depth_key = torch.where(prep.visible, prep.depth.detach(),
+                            torch.full_like(prep.depth, float("inf")))
+    order = torch.argsort(depth_key, stable=True)
+    ntiles_s = ntiles[order]
+
+    # (2) static-budget pair expansion
+    offsets = torch.cumsum(ntiles_s, 0, dtype=torch.int32) - ntiles_s
+    total = offsets[-1] + ntiles_s[-1]
+    slot = torch.arange(max_pairs, dtype=torch.int32, device=dev)
+    g_s = torch.clamp(owner_of_slot(offsets, max_pairs), 0, n - 1)
+    src = order[g_s]
+    local = slot - offsets[g_s]
+    w = torch.clamp_min(nx[src], 1)
+    row = torch.div(local, w, rounding_mode="floor")
+    tile_x = x0[src] + local - row * w
+    tile_y = y0[src] + row
+    valid = slot < torch.clamp_max(total, max_pairs)
+    tile_id = torch.where(valid, tile_y * grid_x + tile_x,
+                          torch.full_like(slot, n_tiles))
+
+    # (3) the stable tile sort keeps depth order within each tile
+    pair_tile, perm = torch.sort(tile_id, stable=True)
+    pair_gaussian = src[perm].to(torch.int32)
+
+    # (4) per-tile ranges from a histogram of the tile ids
+    counts = torch.bincount(tile_id, minlength=n_tiles + 1).to(torch.int32)
+    tile_count = counts[:n_tiles]
+    tile_start = torch.cumsum(tile_count, 0, dtype=torch.int32) - tile_count
+    return TileBins(
+        pair_gaussian=pair_gaussian,
+        pair_tile=pair_tile,
+        pair_valid=valid[perm],
+        tile_start=tile_start,
+        tile_count=tile_count,
+        num_pairs=total,
+        num_dropped=torch.clamp_min(total - max_pairs, 0),
+    )
+
+
+def build_tile_table(bins: TileBins, n_tiles: int, capacity: int) -> torch.Tensor:
+    """(T, K) table of pair indices, -1 padded: entry k of a row is the k-th
+    nearest member of that tile; members past ``capacity`` are dropped.
+
+    The rows of padding pairs and the columns of dropped members land in a
+    last row and column of a one-larger buffer, cut off on return, so the
+    table is built without reading a count back to the host."""
+    m = bins.pair_tile.shape[0]
+    dev = bins.pair_tile.device
+    ids = torch.arange(m, dtype=torch.int32, device=dev)
+    pos = ids - bins.tile_start[torch.clamp(bins.pair_tile, 0, n_tiles - 1)]
+    row = torch.where(bins.pair_valid, bins.pair_tile, torch.full_like(ids, n_tiles))
+    col = torch.clamp(pos, 0, capacity)
+    table = torch.full((n_tiles + 1, capacity + 1), -1, dtype=torch.int32, device=dev)
+    table[row.long(), col.long()] = ids
+    return table[:n_tiles, :capacity]
 
 
 def expand_inputs(

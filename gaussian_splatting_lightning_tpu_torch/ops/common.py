@@ -27,13 +27,22 @@ TRANSMITTANCE_EPS = 1e-4  # reference rasterize.py:204/254
 
 @dataclasses.dataclass(frozen=True)
 class TilingConfig:
-    """Pair budget and tile edge of one render."""
+    """Static budgets and tile edge of one render."""
 
     max_pairs: int = 1 << 18  # (splat, tile) pair budget; rounded up to 128
-    block: int | None = None  # tile edge in px; None = 32 (the kernel path)
+    # the tiled route's (ops/rasterize_tiled.py) per-tile member table: the
+    # deepest members beyond this many are dropped and counted as overflow
+    tile_capacity: int = 1024
+    chunk: int = 64  # members the tiled route composites per scan step
+    # tile edge in px; None = the route's default (``resolve_block``)
+    block: int | None = None
 
-    def resolve_block(self) -> int:
-        return self.block or 32
+    def resolve_block(self, route: str) -> int:
+        """The tile edge a route renders with: 32 px on the kernel routes
+        ("cuda", "plain"), 16 px (the reference's CUDA block) on the tiled
+        route ("xla") and the oracle, as the JAX package picks 32 for its
+        Pallas path and 16 elsewhere."""
+        return self.block or (32 if route in ("cuda", "plain") else 16)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -438,7 +438,7 @@ def rasterize(
     the kernels and CPU tensors through the plain versions. ``prep`` accepts
     an externally computed ``Preprocessed``."""
     config = config or TilingConfig()
-    blk = config.resolve_block()
+    blk = config.resolve_block("cuda")
     if prep is None:
         prep = preprocess(
             means3d, opacities, scales, quats, sh, camera, width, height,

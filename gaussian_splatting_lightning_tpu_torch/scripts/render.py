@@ -2,16 +2,14 @@
 
 Counterpart of the JAX package's ``scripts/render.py`` (itself mirroring the
 reference's ``scripts/render_trained_image.py``): load a checkpoint PLY, pick
-a COLMAP (or Blender) frame, render through the CUDA kernels, report the
-render time, save [GT | render | depth].
+a COLMAP (or Blender) frame, render through the CUDA kernels (or, with
+``--use-oracle``, the readable oracle rasterizer), report the render time,
+save [GT | render | depth].
 
 Usage:
     python -m gaussian_splatting_lightning_tpu_torch.scripts.render CKPT.ply \
         --colmap PATH --image-folder PATH [--image-idx 1] [--resize-to 1600] \
-        [--out out.png] [--device cuda]
-
-``--use-oracle`` is accepted for parity with the JAX CLI but needs the
-readable oracle rasterizer, which is not ported yet.
+        [--use-oracle] [--out out.png] [--device cuda]
 """
 
 from __future__ import annotations
@@ -34,14 +32,12 @@ def main(argv=None):
     parser.add_argument("--resize-to", type=int, default=None)
     parser.add_argument("--downscale", type=float, default=None)
     parser.add_argument("--use-oracle", action="store_true",
-                        help="the readable oracle rasterizer (not ported yet)")
+                        help="the readable oracle rasterizer (ops/rasterize_reference.py)")
     parser.add_argument("--white-background", action="store_true")
     parser.add_argument("--out", default="render.png")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the kernels) or cpu (their plain versions)")
     args = parser.parse_args(argv)
-    if args.use_oracle:
-        parser.error("--use-oracle: the oracle rasterizer is not ported yet")
 
     from gaussian_splatting_lightning_tpu_torch.core.camera import camera_from_matrices
     from gaussian_splatting_lightning_tpu_torch.data.dataset import ColmapDataset
@@ -53,6 +49,9 @@ def main(argv=None):
     from gaussian_splatting_lightning_tpu_torch.models import load_ply
     from gaussian_splatting_lightning_tpu_torch.ops.budget import pair_budget
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.ops.rasterize_reference import (
+        rasterize_reference,
+    )
     from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
 
     scene = load_ply(args.checkpoint, device=args.device)
@@ -80,20 +79,27 @@ def main(argv=None):
                                view.tanfovx, view.tanfovy, device=args.device)
     bg = torch.as_tensor(view.background, dtype=torch.float32).to(scene.device)
 
-    tiling = TilingConfig(max_pairs=pair_budget(scene, cam, w, h,
-                                                TilingConfig().resolve_block()))
-    out, stats = render_scene(scene, cam, w, h, bg, tiling)  # builds the kernels
-    dropped = int(stats["num_dropped_pairs"])
-    if dropped:
-        print(f"WARNING: dropped {dropped} splat-tile pairs "
-              f"(budget {tiling.max_pairs}); image is degraded")
-    sync = torch.cuda.synchronize if scene.device.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    out, _ = render_scene(scene, cam, w, h, bg, tiling)
-    sync()
-    elapsed = time.perf_counter() - t0
-    print(f"render time: {elapsed * 1e3:.2f} ms ({w}x{h}, {scene.device})")
+    if args.use_oracle:
+        out = rasterize_reference(
+            scene.params.xyz, scene.get_opacity(), scene.get_scales(),
+            scene.get_rotation(), scene.get_features(), cam, w, h, bg,
+            scene.active_sh_degree, alive=scene.alive,
+        )
+    else:
+        tiling = TilingConfig(max_pairs=pair_budget(scene, cam, w, h,
+                                                    TilingConfig().resolve_block("cuda")))
+        out, stats = render_scene(scene, cam, w, h, bg, tiling)  # builds the kernels
+        dropped = int(stats["num_dropped_pairs"])
+        if dropped:
+            print(f"WARNING: dropped {dropped} splat-tile pairs "
+                  f"(budget {tiling.max_pairs}); image is degraded")
+        sync = torch.cuda.synchronize if scene.device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out, _ = render_scene(scene, cam, w, h, bg, tiling)
+        sync()
+        elapsed = time.perf_counter() - t0
+        print(f"render time: {elapsed * 1e3:.2f} ms ({w}x{h}, {scene.device})")
 
     image = np.clip(out.image.cpu().numpy(), 0, 1)
     depth = out.depth.cpu().numpy()

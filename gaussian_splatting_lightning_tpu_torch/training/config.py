@@ -8,12 +8,12 @@ the port maps:
 
 - ``train.rasterizer``: ``auto``, ``pallas`` and ``pallas_interpret`` become
   ``"cuda"`` (the kernels; CPU tensors take their plain versions);
-  ``"cuda"`` and ``"plain"`` stay as they are; ``xla`` raises until the XLA
-  rasterizer is ported (ROADMAP.md queue A, item 6).
-- ``train.tiling.tile_capacity``, ``chunk`` and ``pair_grad_bf16`` and the
-  top-level ``use_pallas`` are accepted and have no effect: the port's
-  compositor has no per-tile member table, no chunked pair loop and keeps
-  its pair gradients in f32.
+  ``"cuda"`` and ``"plain"`` stay as they are; ``xla`` runs the tiled route
+  (``ops/rasterize_tiled.py``), which reads ``train.tiling.tile_capacity``
+  and ``chunk``.
+- ``train.tiling.pair_grad_bf16`` and the top-level ``use_pallas`` are
+  accepted and have no effect: they route the TPU's Pallas kernels, and the
+  port keeps its pair gradients in f32.
 - ``mesh_view > 1`` or a ``mesh_tile`` raises until the multi-device step is
   ported (item 9).
 """
@@ -33,10 +33,9 @@ from gaussian_splatting_lightning_tpu_torch.training.optimizer import OptimizerC
 from gaussian_splatting_lightning_tpu_torch.training.trainer import TrainConfig
 
 RASTERIZERS = {"auto": "cuda", "pallas": "cuda", "pallas_interpret": "cuda",
-               "cuda": "cuda", "plain": "plain"}
+               "cuda": "cuda", "plain": "plain", "xla": "xla"}
 # keys of the JAX configuration that the port reads and ignores
-IGNORED = {"RunConfig": {"use_pallas"},
-           "TilingConfig": {"tile_capacity", "chunk", "pair_grad_bf16"}}
+IGNORED = {"RunConfig": {"use_pallas"}, "TilingConfig": {"pair_grad_bf16"}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +104,7 @@ def _build(cls, data: Dict[str, Any]):
         elif cls is TrainConfig and k == "rasterizer":
             if v not in RASTERIZERS:
                 raise ValueError(f"train.rasterizer={v!r}: the port runs "
-                                 f"{sorted(RASTERIZERS)}; the XLA rasterizer is not "
-                                 "ported yet")
+                                 f"{sorted(RASTERIZERS)}")
             v = RASTERIZERS[v]
         kwargs[k] = v
     return cls(**kwargs)

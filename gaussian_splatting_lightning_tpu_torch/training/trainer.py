@@ -45,6 +45,7 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
 )
 from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
 from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize
+from gaussian_splatting_lightning_tpu_torch.ops.rasterize_tiled import rasterize_tiled
 from gaussian_splatting_lightning_tpu_torch.training.densify import (
     DensifyConfig,
     accumulate_stats,
@@ -91,7 +92,7 @@ class TrainConfig:
     batch_views: int = 1  # views per step; only 1 is ported
     use_exposure: bool = False  # per-view affine colour compensation
     exposure_lr: float = 0.001
-    rasterizer: str = "cuda"  # cuda | plain
+    rasterizer: str = "cuda"  # cuda | plain | xla
     densify: DensifyConfig = DensifyConfig()
     optimizer: OptimizerConfig = OptimizerConfig()
     tiling: TilingConfig = TilingConfig()
@@ -114,12 +115,16 @@ def find_resume_checkpoint(exp_dir) -> Optional[Path]:
 def resolve_rasterizer(name: str):
     """``"cuda"``: the kernel path (CUDA tensors launch the kernels, CPU
     tensors run their plain versions); ``"plain"``: the plain PyTorch
-    versions on any device."""
+    versions on any device; ``"xla"``: the tiled route
+    (``ops/rasterize_tiled.py``, the JAX package's XLA path), plain PyTorch
+    over a per-tile member table of ``tiling.tile_capacity`` slots."""
     if name == "cuda":
         return rasterize
     if name == "plain":
         return functools.partial(rasterize, plain=True)
-    raise ValueError(f"unknown rasterizer {name!r} (cuda | plain)")
+    if name == "xla":
+        return rasterize_tiled
+    raise ValueError(f"unknown rasterizer {name!r} (cuda | plain | xla)")
 
 
 def render_scene(
@@ -333,8 +338,9 @@ class Trainer:
         ``tiling.max_pairs``, so the budget doubles when a checked step
         dropped pairs (the step only lost its farthest splats), and shrinks
         to 2x the observed count after ``shrink_patience`` consecutive checks
-        below a quarter of it. ``logs`` holds host floats; the caller reads
-        them only every ``overflow_check_interval`` steps."""
+        below a quarter of it. The tiled route's per-tile member table grows
+        the same way on ``num_tile_overflow``. ``logs`` holds host floats; the
+        caller reads them only every ``overflow_check_interval`` steps."""
         if not self.cfg.adaptive_pairs:
             return
         tiling = self.cfg.tiling
@@ -347,11 +353,16 @@ class Trainer:
             )
         overflow = int(logs.get("num_tile_overflow", 0))
         if overflow > 0:
-            # the port's rasterizer has no per-tile member table, so its
-            # count is always 0 (ops/rasterize.py); the JAX XLA path's
-            # tile_capacity growth comes with that path (ROADMAP queue A, 6)
-            raise RuntimeError(f"step {self.step}: num_tile_overflow={overflow}, but the "
-                               "port's rasterizer has no tile capacity to grow")
+            # the tiled route's member table (the kernel route reports 0):
+            # double until it holds the deepest tile seen
+            cap = (grown or tiling).tile_capacity
+            while cap < tiling.tile_capacity + overflow:
+                cap *= 2
+            grown = dataclasses.replace(grown or tiling, tile_capacity=cap)
+            self.log_fn(
+                f"[tiling] step {self.step}: tile capacity overflow "
+                f"(+{overflow}), growing tile_capacity to {cap}"
+            )
         pairs = int(logs.get("num_pairs", -1))
         if grown is None and pairs >= 0:
             if pairs * 4 < tiling.max_pairs and tiling.max_pairs > 16384:
@@ -525,10 +536,10 @@ class Trainer:
         write_image(self.out_dir / name, (np.moveaxis(trip, 0, -1) * 255).astype(np.uint8))
 
     def _valid_render(self, view):
-        """Render one validation view; on pair drops, grow a validation-only
-        budget and re-render (up to 3 doublings) instead of reporting a
-        degraded PSNR. The grown budget persists across validations and never
-        touches the train-adapted budget."""
+        """Render one validation view; on pair drops or tile overflow, grow a
+        validation-only budget and re-render (up to 3 doublings) instead of
+        reporting a degraded PSNR. The grown budget persists across
+        validations and never touches the train-adapted budget."""
         step_fn = self._valid_eval_step or self._eval_step
         cam = self._camera_of(view)
         img, bg = self._upload(view.image), self._upload(view.background)
@@ -539,14 +550,15 @@ class Trainer:
             overflow = int(logs["num_tile_overflow"])
             if (not dropped and not overflow) or attempt == 3:
                 break
-            if overflow:  # see _maybe_grow_budgets
-                raise RuntimeError(f"validation render: num_tile_overflow={overflow}, but "
-                                   "the port's rasterizer has no tile capacity to grow")
             tiling = self._valid_tiling or self.cfg.tiling
-            tiling = dataclasses.replace(tiling, max_pairs=tiling.max_pairs * 2)
+            if dropped:
+                tiling = dataclasses.replace(tiling, max_pairs=tiling.max_pairs * 2)
+            if overflow:
+                tiling = dataclasses.replace(tiling, tile_capacity=tiling.tile_capacity * 2)
             self.log_fn(
                 f"[valid] step {self.step}: render dropped {dropped} pairs "
-                f"— re-rendering with max_pairs={tiling.max_pairs}"
+                f"/ {overflow} tile overflow — re-rendering with "
+                f"max_pairs={tiling.max_pairs} tile_capacity={tiling.tile_capacity}"
             )
             self._valid_tiling = tiling
             step_fn = self._valid_eval_step = make_eval_step(
@@ -563,12 +575,13 @@ class Trainer:
         mean = {f"valid_{k}": float(np.mean([m[k] for m in metrics])) for k in metrics[0]}
         mean["step"] = self.step
         dropped = int(sum(m["num_dropped_pairs"] for m in metrics))
+        overflow = int(sum(m["num_tile_overflow"] for m in metrics))
         mean["valid_num_dropped_pairs"] = dropped
-        if dropped:
+        if dropped or overflow:
             self.log_fn(
-                f"[valid] WARNING step {self.step}: validation renders still "
-                f"dropped {dropped} pairs after 3 budget growths — PSNR below "
-                "is degraded"
+                f"[valid] WARNING step {self.step}: validation renders "
+                f"still dropped {dropped} pairs / {overflow} tile overflow "
+                f"after 3 budget growths — PSNR below is degraded"
             )
         self.log_fn(
             f"[valid] step {self.step}: psnr={mean['valid_psnr']:.2f} "

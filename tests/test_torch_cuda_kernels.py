@@ -472,3 +472,46 @@ def test_pair_kernels_on_uneven_tiles(scene, block, early_stop):
     gfeat, gauss_s, slot_s, tile_start, tile_count, gx, max_pairs = _uneven_bins(block)
     _check_pair_kernels(gfeat, gauss_s, slot_s, tile_start, tile_count, gx, block,
                         max_pairs, early_stop, seed=4)
+
+
+def test_oracle_and_tiled_routes_match_cuda_route(scene):
+    """The readable oracle and the tiled route (plain PyTorch on the card)
+    against the kernel route: image and inverse depth within K2's 1e-4,
+    launching no kernel; the tiled route's step gradients within 1e-4 of
+    each parameter group's largest gradient."""
+    from gaussian_splatting_lightning_tpu_torch.ops.rasterize_reference import (
+        rasterize_reference,
+    )
+    from gaussian_splatting_lightning_tpu_torch.ops.rasterize_tiled import rasterize_tiled
+
+    cam = interop.camera(W, H)
+    bg = torch.zeros(3, device="cuda")
+    x = (scene.params.xyz, scene.get_opacity(), scene.get_scales(), scene.get_rotation(),
+         scene.get_features(), cam, W, H, bg, scene.active_sh_degree)
+    kw = dict(max_sh_degree=scene.max_sh_degree, alive=scene.alive)
+    tiling = TilingConfig(max_pairs=MAX_PAIRS, tile_capacity=1024, chunk=64)
+    want, _ = trainer.resolve_rasterizer("cuda")(*x, config=tiling, **kw)
+    _build.reset_launch_counts()
+    oracle = rasterize_reference(*x, **kw)
+    tiled, stats = rasterize_tiled(*x, config=tiling, **kw)
+    torch.cuda.synchronize()
+    assert not any(_build.launches.values()), _build.launches
+    assert int(stats["num_tile_overflow"]) == 0 and int(stats["num_dropped_pairs"]) == 0
+    for got in (oracle, tiled):
+        assert float((got.image - want.image).abs().max()) <= K2_TOL
+        assert float((got.depth - want.depth).abs().max()) <= K2_TOL
+
+    target = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(3, H, W)).astype(np.float32)).cuda()
+    out = {route: trainer.step_gradients(trainer.TrainConfig(rasterizer=route, tiling=tiling),
+                                         scene, cam, W, H, target, bg)
+           for route in ("cuda", "xla")}
+    for k in PARAM_NAMES:
+        a, b = getattr(out["xla"][0], k), getattr(out["cuda"][0], k)
+        scale = float(b.abs().max())
+        if scale == 0:
+            assert not a.any(), k
+            continue
+        assert float((a - b).abs().max()) <= 1e-4 * scale, k
+    a, b = out["xla"][1], out["cuda"][1]
+    assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

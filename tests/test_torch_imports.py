@@ -36,9 +36,15 @@ def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert f"{PORT}/ops/binning.py" in names and "chip_smoke.py" in names
     for module in ("training/config.py", "training/densify.py", "training/trainer.py",
-                   "scripts/train.py"):
+                   "scripts/train.py", "utils/runtime.py", "models/splat_export.py",
+                   "ops/rasterize_reference.py", "ops/rasterize_tiled.py",
+                   "scripts/make_synthetic_scene.py", "scripts/eval.py",
+                   "scripts/render_path.py", "scripts/export_splat.py", "scripts/view.py",
+                   "scripts/profile_render.py", "viewer/__init__.py"):
         assert f"{PORT}/{module}" in names, module
-    assert len(names) >= 20
+    assert len(names) >= 30
+    # the viewer page is the port's own file, not a path into the JAX package
+    assert (ROOT / PORT / "viewer" / "viewer.html").is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -2,7 +2,8 @@
 tiny COLMAP scene from ``scripts/make_synthetic_scene.py``.
 
 The port's render matches the JAX CLI's XLA-path render at PSNR > 60 dB, and
-the two triptychs agree panel by panel to one 8-bit level.
+the two triptychs agree panel by panel to one 8-bit level; so do the two
+CLIs' ``--use-oracle`` renders.
 """
 
 import sys
@@ -87,7 +88,30 @@ def test_render_cli_matches_jax_cli(colmap_scene, tmp_path, monkeypatch, image_i
     assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
-def test_use_oracle_is_refused(colmap_scene):
+def test_use_oracle_is_refused(colmap_scene, tmp_path, monkeypatch):
+    """``--use-oracle`` renders through the port's oracle: the triptych
+    agrees with the JAX CLI's ``--use-oracle`` triptych to one 8-bit level
+    and the render with the kernel route's at PSNR > 60 dB."""
     root, ckpt = colmap_scene
-    with pytest.raises(SystemExit):
-        port_cli.main([str(ckpt), "--colmap", str(root), "--use-oracle", "--device", "cpu"])
+    common = [str(ckpt), "--colmap", str(root), "--image-folder", str(root / "images"),
+              "--image-idx", "2"]
+    port_png = tmp_path / "port.png"
+    image, depth = port_cli.main(common + ["--use-oracle", "--device", "cpu", "--out",
+                                           str(port_png)])
+    assert image.shape == (3, H, W) and depth.shape == (1, H, W) and image.max() > 0.1
+    kernel_route, _ = port_cli.main(common + ["--device", "cpu", "--out",
+                                              str(tmp_path / "route.png")])
+    assert psnr(kernel_route, image) > 60.0
+
+    jax_png = tmp_path / "jax.png"
+    monkeypatch.setattr(sys, "argv", ["render"] + common + ["--use-oracle", "--out",
+                                                            str(jax_png)])
+    from scripts.render import main as jax_cli
+
+    jax_cli()
+    import imageio.v2 as imageio
+
+    a, b = np.asarray(imageio.imread(jax_png)), read_image(port_png)
+    assert a.shape == b.shape == (H, 3 * W, 3)
+    np.testing.assert_array_equal(a[:, :W], b[:, :W])
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1

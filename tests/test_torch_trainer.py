@@ -101,6 +101,12 @@ def init_scene(xyz, capacity=64, jitter=0.0, seed=1):
     return from_points(xyz, np.full((len(xyz), 3), 0.5, np.float32), capacity, 1, device="cpu")
 
 
+def init_jax_scene(xyz, capacity=64):
+    from gaussian_splatting_lightning_tpu.models import from_points as jax_from_points
+
+    return jax_from_points(xyz, np.full((len(xyz), 3), 0.5, np.float32), capacity, 1)
+
+
 def small_cfg(**kw):
     base = dict(num_iters=6, capacity=64, log_interval=100, valid_interval=10_000,
                 checkpoint_interval=10_000, rasterizer="plain",
@@ -154,9 +160,19 @@ def test_load_config_matches_jax(path):
 
 
 def test_load_config_refuses_unported_fields():
+    """``mesh`` stays refused; ``train.rasterizer: xla`` now loads to the
+    tiled route, which reads ``tile_capacity`` and ``chunk`` (as JAX does),
+    and an unknown route name is refused."""
     src = CONFIGS[0]
+    cfg = tconfig.load_config(str(src), ["train.rasterizer=xla", "train.tiling.chunk=32",
+                                         "train.tiling.tile_capacity=2048"])
+    want = jconfig.load_config(str(src), ["train.rasterizer=xla", "train.tiling.chunk=32",
+                                          "train.tiling.tile_capacity=2048"])
+    assert cfg.train.rasterizer == want.train.rasterizer == "xla"
+    assert (cfg.train.tiling.chunk, cfg.train.tiling.tile_capacity) == (32, 2048)
+    compare_config(cfg, want)
     with pytest.raises(ValueError, match="rasterizer"):
-        tconfig.load_config(str(src), ["train.rasterizer=xla"])
+        tconfig.load_config(str(src), ["train.rasterizer=triton"])
     with pytest.raises(NotImplementedError, match="mesh"):
         tconfig.load_config(str(src), ["mesh_view=2"])
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -260,13 +276,29 @@ def test_trainer_refuses_unported_modes():
 
 
 def test_tile_overflow_branch_raises():
-    """The port's rasterizer reports ``num_tile_overflow`` = 0 always; the
-    JAX loop's tile-capacity growth stays a named dead branch that raises."""
+    """A checked step's tile overflow grows ``tile_capacity`` as the JAX
+    loop does: doubled until it holds the deepest tile seen, beside a pair
+    budget growth when pairs dropped too, with the JAX log lines (without
+    JAX's " (recompile)")."""
     xyz, views = gt_views(n_views=2)
-    tr = Trainer(small_cfg(), init_scene(xyz), 4.0, views, **QUIET)
-    with pytest.raises(RuntimeError, match="tile capacity"):
-        tr._maybe_grow_budgets({"num_dropped_pairs": 0.0, "num_tile_overflow": 3.0,
-                                "num_pairs": 10.0})
+    for dropped, overflow in [(0, 3), (5, 3), (0, 200), (4, 0)]:
+        logged = {"jax": [], "port": []}
+        tr = Trainer(small_cfg(rasterizer="xla", tiling=TilingConfig(
+            max_pairs=1 << 14, tile_capacity=64)), init_scene(xyz), 4.0, views,
+            log_fn=logged["port"].append)
+        jcfg = jtrainer.TrainConfig(rasterizer="xla", capacity=64, tiling=JaxTiling(
+            max_pairs=1 << 14, tile_capacity=64), densify=jdensify.DensifyConfig(
+            densify_since=100, densify_until=0))
+        jtr = jtrainer.Trainer(jcfg, init_jax_scene(xyz), 4.0, views,
+                               log_fn=logged["jax"].append)
+        logs = {"num_dropped_pairs": float(dropped), "num_tile_overflow": float(overflow),
+                "num_pairs": 10.0}
+        tr._maybe_grow_budgets(logs)
+        jtr._maybe_grow_budgets(logs)
+        assert tr.cfg.tiling.tile_capacity == jtr.cfg.tiling.tile_capacity
+        assert tr.cfg.tiling.max_pairs == jtr.cfg.tiling.max_pairs
+        assert logged["port"] == [m.replace(" (recompile)", "") for m in logged["jax"]]
+        assert (tr.cfg.tiling.tile_capacity > 64) == (overflow > 0)
 
 
 def test_adaptive_pair_budget_grows_and_shrinks():

@@ -67,3 +67,25 @@ def torch_prep_from_jax(jprep) -> Preprocessed:
 def psnr(a, b) -> float:
     mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
     return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+
+def activated(scene, lib):
+    """The activated parameters (means, opacity, scales, rotation, SH), as
+    the render wrappers pass them: fresh torch leaves or jnp arrays."""
+    x = (scene.params.xyz, scene.get_opacity(), scene.get_scales(),
+         scene.get_rotation(), scene.get_features())
+    if lib == "torch":
+        return [t.detach().clone() for t in x]
+    return [jnp.asarray(t) for t in x]
+
+
+def assert_grads_close(got, want, tol=1e-4):
+    """Each gradient of ``activated``'s five inputs within ``tol`` of the
+    largest |value| of its JAX counterpart."""
+    for name, g, w in zip(("xyz", "opacity", "scales", "quats", "sh"), got, want):
+        w = np.asarray(w).reshape(g.shape)
+        scale = float(np.abs(w).max())
+        assert scale > 0, name
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= tol * scale, (name, err, scale)
+

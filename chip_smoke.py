@@ -57,14 +57,38 @@ Phases (any failure exits non-zero):
      at 1080p against the kernel route (1e-4; neither launches a kernel),
      the tiled route's step gradients against the kernel route's, the render
      CLI's ``--use-oracle``, and ``profile_render`` at its default operating
-     point (K1 and K2 in its 60-row table, a trace written). A ``serve:``
-     line holds the numbers.
+     point (K1 and K2 in its 60-row table, a trace written). Eval also takes
+     ``--lpips-weights`` (seeded random weights in the export layout):
+     LPIPS per view and its time, LPIPS(x, x) = 0 exactly, and the card's
+     LPIPS against the CPU's on one view at ``--downscale 0.25`` (1e-4
+     relative). A ``serve:`` line holds the numbers.
+  8. the view-batched step (``batch_views``) at full width: phase 5's scene
+     and budget at 1920x1080 on the bench camera and phase 3's three orbit
+     views, the first B of them for B in 1, 2, 4, BATCH_STEPS steps each (a
+     ``train_step_batched:`` line each: host wall, CUDA-event time, ms per
+     view, launches per step from ``torch.profiler``, K1-K4 once and K5
+     twice per step, 0 dropped pairs, peak memory). For each B the batched
+     K1 and bins are identical to the plain version's per view, K2, K3 the
+     bits of the single-view launches on each view and K4 within 1e-5 of
+     its plain version at 1080p; K2 within 1e-4 and K3 within 1e-4 of their
+     plain versions at 256x192 with 20k splats. The B = 4 step's gradients
+     on route "cuda" are held to the mean of the four single-view steps'
+     (1e-4 of each column's maximum), its screen-space gradients to the
+     stacked single-view ones. Launches per step at B = 4 stay within 1.3x
+     of B = 1's. A ``phase8:`` line holds the numbers.
+
+Phase 6 also runs the train CLI with ``train.batch_views=4`` and exposure
+for BATCHED_LOOP_STEPS steps across one densify event (a
+``train_loop_batched:`` line: quiet-step wall and idle share, host syncs
+per quiet step no more than the single-view loop's, view counts within 4
+per step, finite losses, held-out PSNR above the init scene's).
 
 Phases 3 and 6 keep their PLYs and scene in one temporary directory for
 phase 7. The card's name and power limit come two lines before the last, the
 kernels' JSON record (``max_abs_err`` is the largest |kernel - plain| over
 the kernel's outputs; K1's outputs are integers; ``serve_launches`` holds
-each phase-7 CLI's launches) on the line before the last, and
+each phase-7 CLI's launches, ``batched_launches`` phase 8's per B) on the
+line before the last, and
 ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 """
 
@@ -166,10 +190,12 @@ def n_syncs(caught) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def profile_render(render, wall_ms: float, reps: int = 5, unit: str = "render") -> None:
+def profile_render(render, wall_ms: float, reps: int = 5, unit: str = "render"):
     """Print the device's busy time per call of ``render`` from
     torch.profiler, its idle share of ``wall_ms`` (the call's time without
-    the profiler), and the device time of the heaviest kernels."""
+    the profiler), and the device time of the heaviest kernels; returns
+    those numbers and every kernel's launches per call, or None when the
+    profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -190,12 +216,17 @@ def profile_render(render, wall_ms: float, reps: int = 5, unit: str = "render") 
               "activity)", flush=True)
         return
     rows.sort(key=lambda r: -r[1])
-    print("profile: " + json.dumps({
+    row = {
         f"wall_ms_per_{unit}": wall_ms, f"device_busy_ms_per_{unit}": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         f"device_kernels_per_{unit}": sum(r[2] for r in rows),
         "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in rows[:12]],
-    }), flush=True)
+    }
+    print("profile: " + json.dumps(row), flush=True)
+    counts = {}
+    for k, _, n in rows:
+        counts[k] = counts.get(k, 0) + n
+    return dict(row, launches_by_kernel=counts)
 
 
 def probe():
@@ -1166,7 +1197,100 @@ def phase6(bare_step_syncs: int, work: Path):
     if not loss_diff <= LOOP_LOSS_TOL:
         fail(f"phase 6: the resumed run's losses differ from run 1's by {loss_diff} "
              f"relative (> {LOOP_LOSS_TOL})")
+    loop_batched(argv, init_psnr, max(syncs), work)
     return launches, run_dir, root, final_psnr
+
+
+BATCHED_LOOP_STEPS = 250  # across the densify event at step 200
+BATCHED_LOOP_SETS = {"train.batch_views": 4, "train.use_exposure": "true",
+                     "train.num_iters": BATCHED_LOOP_STEPS, "run_name": "batched"}
+
+
+def loop_batched(argv, init_psnr: float, single_syncs: int, work: Path):
+    """Phase 6's operating point through the train CLI with four views per
+    step and exposure, BATCHED_LOOP_STEPS steps: the quiet steps' wall,
+    idle share and host syncs, the view counts, the losses and the held-out
+    PSNR at the end."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
+    from gaussian_splatting_lightning_tpu_torch.training import trainer as tr
+
+    t_phase = time.perf_counter()
+    argv = list(argv)
+    argv[argv.index("--out-dir") + 1] = str(work / "runs_batched")
+    for k, v in BATCHED_LOOP_SETS.items():
+        argv += ["--set", f"{k}={v}"]
+    calls, prof_t = {}, []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    orig = tr.make_train_step
+
+    def make_timed(*a, **k):
+        step_fn = orig(*a, **k)
+
+        def timed(scene, adam, step, *rest, **kw):
+            if step in LOOP_PROFILE and len(prof_t) < 2:
+                torch.cuda.synchronize()
+                prof_t.append(time.perf_counter())
+                (prof.start if len(prof_t) == 1 else prof.stop)()
+            calls.setdefault(step, (time.perf_counter(), len(caught)))
+            return step_fn(scene, adam, step, *rest, **kw)
+
+        return timed
+
+    tr.make_train_step = make_timed
+    _build.reset_launch_counts()
+    try:
+        with count_syncs() as caught, contextlib.redirect_stdout(Tee()):
+            trainer = train_cli.main(argv)
+    finally:
+        tr.make_train_step = orig
+    launches = dict(_build.launches)
+    hist = {r["step"]: r for r in trainer.history}
+    run_dir, exposure = trainer.out_dir, trainer.exposure.params
+    max_count = float(trainer.scene.grad_count.max())
+    del trainer
+    torch.cuda.empty_cache()
+    steps = BATCHED_LOOP_STEPS
+    bad = [s for s, r in hist.items() if not math.isfinite(r["loss"])]
+    if bad or sorted(hist) != list(range(0, steps, 50)):
+        fail(f"phase 6 (batched): logged steps {sorted(hist)}, non-finite loss at {bad}")
+    # view counts restart at the densify event at step 200: four views a step since
+    if not 0 < max_count <= 4 * (steps - 200):
+        fail(f"phase 6 (batched): largest view count {max_count} after {steps - 200} steps")
+    moved = float((exposure - torch.eye(3, 4, device=exposure.device)).abs().amax())
+    valid = [json.loads(x) for x in (run_dir / "valid_log.jsonl").read_text().splitlines()]
+    final_psnr = valid[-1]["valid_psnr"]
+    if valid[-1]["step"] != steps or not final_psnr > init_psnr or not moved > 0:
+        fail(f"phase 6 (batched): held-out PSNR {final_psnr} at step {valid[-1]['step']}, "
+             f"init {init_psnr}; exposure moved {moved}")
+    quiet = [t for t in range(30, steps - 1) if t % 50 and (t + 1) % 100 and t + 1 in calls
+             and not LOOP_PROFILE[0] - 2 <= t <= LOOP_PROFILE[1] + 1]
+    walls = [(calls[t + 1][0] - calls[t][0]) * 1e3 for t in quiet]
+    syncs = [n_syncs(caught[calls[t][1]:calls[t + 1][1]]) for t in quiet]
+    if max(syncs) > single_syncs:
+        fail(f"phase 6 (batched): a quiet step synced {max(syncs)} times, the "
+             f"single-view loop's {single_syncs}")
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0) / 1e3
+    n_prof = LOOP_PROFILE[1] - LOOP_PROFILE[0]
+    wall = sorted(walls)[len(walls) // 2]
+    row = {"views_per_step": 4, "steps": steps, "step_wall_ms_median": wall,
+           "wall_ms_per_view": wall / 4, "steps_timed": len(walls),
+           "step_wall_ms_min": min(walls), "step_wall_ms_max": max(walls),
+           "device_busy_ms_per_step": busy_ms / n_prof,
+           "device_idle_share": 1.0 - busy_ms / n_prof / wall,
+           "host_syncs_per_quiet_step": [min(syncs), max(syncs)],
+           "single_view_loop_syncs": single_syncs, "max_view_count": max_count,
+           "loss": {s: r["loss"] for s, r in sorted(hist.items())},
+           "alive": {s: int(r["n_gaussians"]) for s, r in sorted(hist.items())},
+           "init_psnr": init_psnr, "final_psnr": final_psnr,
+           "exposure_max_move": moved, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print("train_loop_batched: " + json.dumps(row), flush=True)
 
 
 # phase 7: the serving and evaluation entry points at 1920x1080
@@ -1174,6 +1298,73 @@ SERVE_VIEWS, SERVE_GT = 24, 80_000  # the JAX generator's default operating poin
 SERVE_FRAMES = 48
 EVAL_PSNR_TOL = 0.1  # eval (render clipped to [0, 1]) against phase 6's validation
 ORACLE_SPLATS = 2_000
+
+
+LPIPS_CPU_TOL = 1e-4  # the card's LPIPS against the CPU's, relative
+
+
+def write_lpips_weights(path: Path, seed: int = 0) -> Path:
+    """Seeded random LPIPS-VGG weights in the export layout (no pretrained
+    weights are in the repository): conv weights N(0, 0.05), biases
+    N(0, 0.01), non-negative linear heads |N(0, 1)|."""
+    import numpy as np
+
+    from gaussian_splatting_lightning_tpu_torch.ops.lpips import TAPS, WIDTHS
+
+    rng = np.random.default_rng(seed)
+    w, in_ch = {}, 3
+    for i, width in enumerate(WIDTHS):
+        w[f"conv{i}_w"] = rng.normal(0, 0.05, size=(width, in_ch, 3, 3)).astype(np.float32)
+        w[f"conv{i}_b"] = rng.normal(0, 0.01, size=(width,)).astype(np.float32)
+        in_ch = width
+    for j, tap in enumerate(TAPS):
+        w[f"lin{j}_w"] = np.abs(rng.normal(0, 1, size=(WIDTHS[tap],))).astype(np.float32)
+    np.savez(path, **w)
+    return path
+
+
+def check_lpips(res, npz: Path, ply: Path, scene_dir: Path) -> dict:
+    """Eval's LPIPS rows; LPIPS(x, x) = 0 on a 1080p held-out image; one
+    held-out view at ``--downscale 0.25`` rendered on the card and scored on
+    the card and on the CPU."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.core.camera import camera_from_matrices
+    from gaussian_splatting_lightning_tpu_torch.data.dataset import ColmapDataset
+    from gaussian_splatting_lightning_tpu_torch.models import load_ply
+    from gaussian_splatting_lightning_tpu_torch.ops.budget import pair_budget
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.ops.lpips import load_weights, lpips
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
+
+    per_view = [v["lpips"] for v in res["views"]]
+    if not all(math.isfinite(x) and x > 0 for x in per_view):
+        fail(f"phase 7: eval's LPIPS rows {per_view}")
+    weights = load_weights(npz)
+    w_cuda = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    full = ColmapDataset(str(scene_dir), str(scene_dir / "images"), preload_data=False)[0]
+    gt = torch.from_numpy(full.image).cuda()
+    same = float(lpips(gt, gt, w_cuda))
+    view = ColmapDataset(str(scene_dir), str(scene_dir / "images"), downscale=0.25,
+                         preload_data=False)[0]
+    h, w = view.image.shape[-2:]
+    scene = load_ply(str(ply))
+    cam = camera_from_matrices(view.viewmatrix, view.projmatrix, view.campos,
+                               view.tanfovx, view.tanfovy)
+    tiling = TilingConfig(max_pairs=pair_budget(scene, [cam], w, h))
+    with torch.no_grad():
+        out, _ = render_scene(scene, cam, w, h, torch.zeros(3, device="cuda"), tiling)
+    image = out.image.clamp(0, 1)
+    target = torch.from_numpy(view.image).cuda()
+    card = float(lpips(image, target, w_cuda))
+    cpu = float(lpips(image.cpu(), target.cpu(), weights))
+    rel = abs(card - cpu) / abs(cpu)
+    row = {"per_view": per_view, "mean": res["mean"]["lpips"],
+           "ms_per_view_1080p": [v["lpips_ms"] for v in res["views"]],
+           "lpips_x_x": same, "card_vs_cpu": [card, cpu, rel], "size_cpu_check": [w, h]}
+    if same != 0.0 or not rel <= LPIPS_CPU_TOL:
+        fail(f"phase 7: LPIPS(x, x) = {same}, card {card} against CPU {cpu} ({rel:.3g})")
+    return row
 
 
 def run_counted(fn, *args):
@@ -1251,11 +1442,13 @@ def phase7(work: Path, run_dir: Path, scene_dir: Path, loop_psnr: float, bench_p
     row["generator"] = {"s_per_view": gen_s / SERVE_VIEWS, "seconds": gen_s,
                         "max_pairs": gen["max_pairs"], "render_ms": gen["render_ms"]}
 
-    # (b) eval on phase 6's final scene and its held-out views
+    # (b) eval on phase 6's final scene and its held-out views, with LPIPS
     out_json = work / "eval.json"
+    lpips_npz = write_lpips_weights(work / "lpips_vgg16.npz")
     res, counts, eval_s = run_counted(eval_cli.main, [
         str(ply), "--colmap", str(scene_dir), "--image-folder", str(scene_dir / "images"),
-        "--holdout-every", "8", "--out", str(out_json), "--device", "cuda"])
+        "--holdout-every", "8", "--lpips-weights", str(lpips_npz), "--out", str(out_json),
+        "--device", "cuda"])
     kernels_ran("eval", counts, RENDER_KERNELS + ("blur",))
     if json.loads(out_json.read_text()) != res or len(res["views"]) != 3:
         fail(f"phase 7: eval gave {len(res['views'])} views or a different --out file")
@@ -1266,6 +1459,7 @@ def phase7(work: Path, run_dir: Path, scene_dir: Path, loop_psnr: float, bench_p
         fail(f"phase 7: SSIM outside [0, 1]: {res['views']}")
     row["eval"] = {"mean": res["mean"], "loop_psnr": loop_psnr, "psnr_diff": psnr_diff,
                    "render_ms": [v["render_ms"] for v in res["views"]], "seconds": eval_s}
+    row["lpips"] = check_lpips(res, lpips_npz, ply, scene_dir)
 
     # (c) a looped camera path through the same scene, with a GIF
     frames_dir, gif = work / "path", work / "path.gif"
@@ -1415,6 +1609,235 @@ def phase7(work: Path, run_dir: Path, scene_dir: Path, loop_psnr: float, bench_p
     return launches
 
 
+# phase 8: the view-batched step at full width (the bench scene at 1080p)
+BATCH_SIZES = (1, 2, 4)
+BATCH_STEPS = 10
+BATCH_LAUNCH_RATIO = 1.3  # launches per step at B = 4 over B = 1, at most
+
+
+def _prep_views(scene, cams, w, h):
+    from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+
+    return _prep(scene, stack_cameras(cams), w, h)
+
+
+def check_batched_kernels(scene, cams, w, h, blk, max_pairs, against_plain):
+    """K1-K4 on a stack of ``cams`` against their plain versions, view by
+    view. ``against_plain`` holds K2 and K3 to their plain versions (small
+    shapes); otherwise to the single-view launches on each view, bit for bit
+    (at 1080p, where the plain K2 and K3 cost seconds a view). Returns the
+    largest errors, and the batched launches' inputs for timing."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.ops import binning, rasterize
+
+    b = len(cams)
+    stacked = _prep_views(scene, cams, w, h)
+    gx, gy = binning.grid_shape(w, h, blk, blk)
+    bins = binning.build_sorted_bins(stacked, gx, gy, max_pairs, block=blk)
+    plain = binning.build_sorted_bins(stacked, gx, gy, max_pairs, block=blk, plain=True)
+    for name, x, y in zip(bins._fields, bins, plain):
+        if not torch.equal(x, y):
+            fail(f"batched K1, B = {b}: bins field {name} differs from the plain version's")
+    if int(bins.num_dropped.sum()):
+        fail(f"batched K1, B = {b}: pairs dropped {bins.num_dropped.tolist()}")
+    gfeat = rasterize.feature_table(stacked, w, h, blk)
+    bg = torch.tensor([[0.1, 0.2, 0.3]] * b, device="cuda")
+    fwd = (gfeat, bins.gauss_s, bins.tile_start, bins.tile_count, bg, gx, blk)
+    out = rasterize.composite_fwd(*fwd)
+    out_again = rasterize.composite_fwd(*fwd)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grad_out = torch.randn(out.shape, device="cuda", generator=gen) * 1e-3
+    bwd = (gfeat, bins.gauss_s, bins.slot_s, bins.tile_start, bins.tile_count, out,
+           grad_out, gx, blk, max_pairs)
+    dk = rasterize.composite_bwd(*bwd)
+    dk_again = rasterize.composite_bwd(*bwd)
+    seg = (dk, bins.offsets, bins.ntiles, bins.order)
+    sk = rasterize.segment_sum(*seg)
+    sk_again = rasterize.segment_sum(*seg)
+    sp = rasterize.segment_sum_plain(*seg)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, out_again) and torch.equal(dk, dk_again)
+            and torch.equal(sk, sk_again)):
+        fail(f"batched K2-K4, B = {b}: a second run gave other bits")
+    errs = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+    ng = rasterize.NGRAD
+    for v in range(b):
+        if against_plain:
+            out_p = rasterize.composite_fwd_plain(*(x[v] for x in fwd[:5]), gx, blk)
+            dp = rasterize.composite_bwd_plain(*(x[v] for x in bwd[:7]), gx, blk, max_pairs)
+            errs["K2"] = max(errs["K2"], float((out[v] - out_p).abs().max()))
+            errs["K3"] = max(errs["K3"], col_err(dk[v], dp))
+            if not torch.equal(dk[v].abs().sum(1) == 0, dp.abs().sum(1) == 0):
+                fail(f"batched K3, B = {b}, view {v}: other zero rows than the plain version")
+        else:
+            one = rasterize.composite_fwd(*(x[v] for x in fwd[:5]), gx, blk)
+            d1 = rasterize.composite_bwd(*(x[v] for x in bwd[:7]), gx, blk, max_pairs)
+            if not (torch.equal(out[v], one) and torch.equal(dk[v], d1)):
+                fail(f"batched K2/K3, B = {b}, view {v}: not the single-view launch's bits")
+        errs["K4"] = max(errs["K4"], col_err(sk[v, :, :ng], sp[v, :, :ng]))
+    for name, tol in (("K2", K2_TOL), ("K3", K3_TOL), ("K4", K4_TOL)):
+        if not errs[name] <= tol:
+            fail(f"batched {name}, B = {b}: error {errs[name]} > {tol}")
+    ctx = dict(inp=binning.expand_inputs(stacked, gx, gy, 0, gy, blk)[0], gx=gx,
+               n_tiles=gx * gy, fwd=fwd, bwd=bwd, seg=seg)
+    return errs, ctx
+
+
+def batched_kernel_ms(ctx, max_pairs, blk):
+    """Each batched kernel's time on the step's own inputs (CUDA events)."""
+    from gaussian_splatting_lightning_tpu_torch.ops import binning, rasterize
+
+    return {
+        "expand_pairs": cuda_time_ms(lambda: binning.expand_pairs(
+            ctx["inp"], max_pairs, ctx["gx"], ctx["n_tiles"], 0, blk), 10),
+        "composite_fwd": cuda_time_ms(lambda: rasterize.composite_fwd(*ctx["fwd"]), 5),
+        "composite_bwd": cuda_time_ms(lambda: rasterize.composite_bwd(*ctx["bwd"]), 5),
+        "segment_sum": cuda_time_ms(lambda: rasterize.segment_sum(*ctx["seg"]), 10),
+    }
+
+
+def check_batched_gradients(scene, cams, w, h, tiling):
+    """The B = 4 step's gradients on route "cuda" against the mean of the
+    four single-view steps' (each column's maximum), its screen-space
+    gradients against the stacked single-view ones, radii exactly."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
+    from gaussian_splatting_lightning_tpu_torch.training import trainer
+
+    b = len(cams)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    targets = torch.rand((b, 3, h, w), device="cuda", generator=gen)
+    bgs = torch.rand((b, 3), device="cuda", generator=gen)
+    g, screen, _, radii, logs, _ = trainer.step_gradients(
+        trainer.TrainConfig(tiling=tiling, batch_views=b), scene, stack_cameras(cams),
+        w, h, targets, bgs)
+    single = [trainer.step_gradients(trainer.TrainConfig(tiling=tiling), scene, cams[v],
+                                     w, h, targets[v], bgs[v]) for v in range(b)]
+    errs = {}
+    for k in PARAM_NAMES:
+        mean = sum(getattr(s[0], k) for s in single) / b
+        errs[k] = col_err(getattr(g, k).reshape(mean.shape[0], -1),
+                          mean.reshape(mean.shape[0], -1))
+    errs["means2d_ndc_offset"] = max(col_err(screen[v], single[v][1]) for v in range(b))
+    loss = sum(float(s[4]["loss"]) for s in single) / b
+    errs["loss"] = abs(float(logs["loss"]) - loss) / loss
+    if not all(torch.equal(radii[v], single[v][3]) for v in range(b)):
+        fail("phase 8: the batched step's radii differ from the single-view steps'")
+    bad = {k: v for k, v in errs.items() if not v <= STEP_GRAD_TOL}
+    if bad:
+        fail(f"phase 8: B = {b} step gradients differ from the single-view mean: {bad}")
+    return errs
+
+
+def phase8(scene, budget):
+    """The view-batched train step at 1080p on phase 5's scene and budget."""
+    import numpy as np
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.training import trainer
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
+
+    t_phase = time.perf_counter()
+    w, h, blk = 1920, 1080, 32
+    cams = orbit_cameras(w, h)
+    targets = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(len(cams), 3, h, w)).astype(np.float32)).cuda()
+    tiling = TilingConfig(max_pairs=budget, block=blk)
+    m = -(-budget // 128) * 128
+    expected = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
+                "segment_sum": 1, "blur": 2}
+    rows, launches, by_kernel = {}, {}, {}
+    for b in BATCH_SIZES:
+        cfg = trainer.TrainConfig(tiling=tiling, batch_views=b)
+        step_fn = trainer.make_train_step(cfg, 1.0, w, h)
+        if b == 1:
+            cam, img, bg = cams[0], targets[0], torch.zeros(3, device="cuda")
+        else:
+            cam, img, bg = stack_cameras(cams[:b]), targets[:b], torch.zeros(b, 3, device="cuda")
+        state = {"scene": scene, "adam": init_adam(scene.params), "step": 0}
+
+        def one_step():
+            state["scene"], state["adam"], logs = step_fn(
+                state["scene"], state["adam"], state["step"], cam, img, bg)
+            state["step"] += 1
+            return logs
+
+        one_step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        step_ms, syncs = [], []
+        for _ in range(BATCH_STEPS):
+            before = dict(_build.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with count_syncs() as caught:
+                logs = one_step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            syncs.append(n_syncs(caught))
+            launched = {k: _build.launches[k] - before[k] for k in before}
+            loss, dropped = float(logs["loss"]), int(logs["num_dropped_pairs"])
+            if not math.isfinite(loss) or dropped or launched != expected:
+                fail(f"phase 8, B = {b}: loss {loss}, {dropped} pairs dropped, "
+                     f"launches {launched}")
+        launches[b] = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        wall = sorted(step_ms)[len(step_ms) // 2]
+        event_ms = cuda_time_ms(one_step, 3)
+        prof = profile_render(one_step, wall, reps=3, unit="step")
+        if prof is None:
+            fail(f"phase 8, B = {b}: the profiler saw no device activity")
+        del state
+        errs_1080, ctx = check_batched_kernels(scene, cams[:b], w, h, blk, m, False)
+        kernel_ms = batched_kernel_ms(ctx, m, blk)
+        del ctx
+        small = interop.synthetic_scene(20_000, 20_000, aniso=True, scale=0.01)
+        errs_small, _ = check_batched_kernels(small, orbit_cameras(256, 192)[:b], 256, 192,
+                                              blk, 1 << 18, True)
+        del small
+        row = {"views": b, "step_wall_ms_median": wall, "step_wall_ms": step_ms,
+               "wall_ms_per_view": wall / b, "step_event_ms": event_ms,
+               "event_ms_per_view": event_ms / b,
+               "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+               "device_idle_share": prof["device_idle_share"],
+               "launches_per_step": prof["device_kernels_per_step"],
+               "host_syncs": [min(syncs), max(syncs)], "kernel_launches": launches[b],
+               "loss": float(logs["loss"]), "num_pairs": int(logs["num_pairs"]),
+               "dropped": 0, "peak_mem_bytes": peak, "kernel_ms": kernel_ms,
+               "kernel_err_1080p": errs_1080, "kernel_err_256x192": errs_small}
+        print("train_step_batched: " + json.dumps(row), flush=True)
+        rows[b] = row
+        by_kernel[b] = prof["launches_by_kernel"]
+        torch.cuda.empty_cache()
+    ratio = rows[4]["launches_per_step"] / rows[1]["launches_per_step"]
+    if not ratio <= BATCH_LAUNCH_RATIO:
+        fail(f"phase 8: launches per step at B = 4 are {ratio:.3f}x those at B = 1")
+    grad_err = check_batched_gradients(scene, cams, w, h, tiling)
+    # which kernels the four views launch more (or less) often than one
+    names = set(by_kernel[1]) | set(by_kernel[4])
+    launch_diff = sorted(((by_kernel[4].get(k, 0) - by_kernel[1].get(k, 0), k[:90])
+                          for k in names), key=lambda x: -abs(x[0]))
+    launch_diff = [d for d in launch_diff if d[0]]
+    summary = {
+        "ms_per_view_wall": {b: r["wall_ms_per_view"] for b, r in rows.items()},
+        "ms_per_view_events": {b: r["event_ms_per_view"] for b, r in rows.items()},
+        "launches_per_step": {b: r["launches_per_step"] for b, r in rows.items()},
+        "launch_ratio_4_to_1": ratio, "launch_diff_4_vs_1": launch_diff,
+        "peak_mem_bytes": {b: r["peak_mem_bytes"] for b, r in rows.items()},
+        "grad_rel_err_b4_vs_single_mean": grad_err, "phase_s": time.perf_counter() - t_phase,
+    }
+    print("phase8: " + json.dumps(summary), flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1441,12 +1864,14 @@ def main() -> int:
         phase4()
         bare_step_syncs, step_kernels = phase5(scene, budget)
         kernels += step_kernels
+        batched_launches = phase8(scene, budget)
         del scene
         loop_launches, run_dir, scene_dir, loop_psnr = phase6(bare_step_syncs, work)
         serve_launches = phase7(work, run_dir, scene_dir, loop_psnr, bench_ply)
     for row in kernels:
         row["loop_launches"] = loop_launches[row["name"]]
         row["serve_launches"] = {cli: n[row["name"]] for cli, n in serve_launches.items()}
+        row["batched_launches"] = {str(b): n[row["name"]] for b, n in batched_launches.items()}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -37,7 +37,8 @@ def get_projection_matrix(
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
-    """One view's rasterization settings, every field a tensor on one device."""
+    """One view's rasterization settings, every field a tensor on one device;
+    or a stack of B views (``stack_cameras``), every field with a leading B."""
 
     viewmatrix: torch.Tensor  # (4, 4) row-vector world->cam, translation in row 3
     projmatrix: torch.Tensor  # (4, 4) full projection = view @ proj^T
@@ -49,8 +50,24 @@ class Camera:
     def device(self) -> torch.device:
         return self.viewmatrix.device
 
+    @property
+    def views(self) -> int | None:
+        """B for a stack of views, None for one view."""
+        return self.viewmatrix.shape[0] if self.viewmatrix.dim() == 3 else None
+
+    def view(self, i: int) -> "Camera":
+        """View ``i`` of a stack."""
+        return Camera(*(getattr(self, f.name)[i] for f in dataclasses.fields(self)))
+
     def focal(self, width: int, height: int):
         return (width * 0.5) / self.tanfovx, (height * 0.5) / self.tanfovy
+
+
+def stack_cameras(cameras) -> Camera:
+    """One Camera whose fields stack the views' along a leading axis (B, ...),
+    the input of a view-batched render or train step."""
+    return Camera(*(torch.stack([getattr(c, f.name) for c in cameras])
+                    for f in dataclasses.fields(Camera)))
 
 
 def make_camera(

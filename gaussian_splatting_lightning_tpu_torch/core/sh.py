@@ -126,7 +126,7 @@ def sh_to_rgb(
     Spec: reference ``render_tools.py:118-131`` (computeColorFromSH):
     normalize(points - campos), eval, +0.5, clamp_min 0.
     """
-    direction = points - campos[None, :]
+    direction = points - campos[..., None, :]  # (B, 3) campos: (B, N, 3)
     direction = direction / torch.linalg.vector_norm(direction, dim=-1, keepdim=True)
     if max_degree is None:
         max_degree = int(degree)

@@ -108,7 +108,8 @@ def project_cov3d_ewa(
     """EWA projection of 3D covariance to screen space.
 
     Spec: reference ``render_tools.py:13-52``. Returns the *undilated* 2x2
-    covariance as (..., 3) = (a, b, d) for [[a, b], [b, d]].
+    covariance as (..., 3) = (a, b, d) for [[a, b], [b, d]]. With a (B, 4, 4)
+    ``viewmatrix`` the focals and tangents are (B, 1) and the result (B, N, 3).
     """
     p_view = apply_extrinsic(means3d, viewmatrix)
     z = p_view[..., 2]
@@ -128,10 +129,12 @@ def project_cov3d_ewa(
     j11 = focal_y * inv_z
     j12 = -focal_y * y * inv_z2
 
-    # Row-vector viewmatrix => world->cam rotation (column form) is view[:3,:3]^T.
-    W = viewmatrix[:3, :3].T
-    t0 = j00[..., None] * W[0] + j02[..., None] * W[2]
-    t1 = j11[..., None] * W[1] + j12[..., None] * W[2]
+    # Row-vector viewmatrix => world->cam rotation (column form) is view[:3,:3]^T;
+    # a (B, 4, 4) stack of views broadcasts its rows over the splats
+    W = viewmatrix[..., :3, :3].transpose(-1, -2)
+    w0, w1, w2 = (W[..., None, i, :] for i in range(3))
+    t0 = j00[..., None] * w0 + j02[..., None] * w2
+    t1 = j11[..., None] * w1 + j12[..., None] * w2
 
     v_xx, v_xy, v_xz = cov6[..., 0], cov6[..., 1], cov6[..., 2]
     v_yy, v_yz, v_zz = cov6[..., 3], cov6[..., 4], cov6[..., 5]

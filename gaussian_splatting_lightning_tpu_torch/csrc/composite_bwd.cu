@@ -49,7 +49,10 @@
 // pairs remains. Nothing staged is held in registers, which lets three
 // blocks (24 warps) share an SM. The TPU kernel's log-space cumsum,
 // 128-lane windows, VMEM carry for shared boundary chunks and bf16 routing
-// are answers to TPU limits and are not carried over.
+// are answers to TPU limits and are not carried over. A stack of B views is
+// one launch on a (tiles, B) grid, K2's: block (t, v) re-walks tile t of
+// view v, whose inputs and pair-gradient rows lie B-major at per-view
+// strides.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -155,8 +158,9 @@ __global__ void __launch_bounds__(B * B / 4, 3) composite_bwd_kernel(
     const float4* __restrict__ gfeat, const int* __restrict__ gauss_s,
     const int* __restrict__ slot_s, const int* __restrict__ tile_start,
     const int* __restrict__ tile_count, const float* __restrict__ out,
-    const float* __restrict__ grad_out, float* __restrict__ dpair, int grid_x,
-    int tile_y_offset, int rect_mask, int early_stop) {
+    const float* __restrict__ grad_out, float* __restrict__ dpair, int n_splats,
+    int n_pairs, int max_pairs, int grid_x, int tile_y_offset, int rect_mask,
+    int early_stop) {
   constexpr int kPix = B * B;
   constexpr int kThreads = kPix / 4;
   constexpr int kWarps = kThreads / 32;
@@ -168,6 +172,17 @@ __global__ void __launch_bounds__(B * B / 4, 3) composite_bwd_kernel(
   // per-warp partial sums [buffer][pair][gradient][warp]; the +1 keeps the
   // warp-order sums free of bank conflicts
   __shared__ float part[2][kSub][kGrad][kWarps + 1];
+  {  // this grid column's view
+    const size_t v = blockIdx.y, n_tiles = gridDim.x;
+    gfeat += v * n_splats * 4;
+    gauss_s += v * n_pairs;
+    slot_s += v * n_pairs;
+    tile_start += v * n_tiles;
+    tile_count += v * n_tiles;
+    out += v * n_tiles * 4 * kPix;
+    grad_out += v * n_tiles * 4 * kPix;
+    dpair += v * max_pairs * kGrad;
+  }
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
@@ -356,16 +371,17 @@ __global__ void __launch_bounds__(B * B / 4, 3) composite_bwd_kernel(
 extern "C" int gs_composite_bwd(
     const void* gfeat, const void* gauss_s, const void* slot_s,
     const void* tile_start, const void* tile_count, const void* out,
-    const void* grad_out, void* dpair, int n_tiles, int grid_x, int block,
-    int tile_y_offset, int rect_mask, int early_stop, void* stream) {
-  if (n_tiles > 0) {
+    const void* grad_out, void* dpair, int n_tiles, int views, int n_splats,
+    int n_pairs, int max_pairs, int grid_x, int block, int tile_y_offset, int rect_mask,
+    int early_stop, void* stream) {
+  if (n_tiles > 0 && views > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     const auto launch = [&](auto kernel, int threads) {
-      kernel<<<n_tiles, threads, 0, s>>>(
+      kernel<<<dim3(n_tiles, views), threads, 0, s>>>(
           (const float4*)gfeat, (const int*)gauss_s, (const int*)slot_s,
           (const int*)tile_start, (const int*)tile_count, (const float*)out,
-          (const float*)grad_out, (float*)dpair, grid_x, tile_y_offset,
-          rect_mask, early_stop);
+          (const float*)grad_out, (float*)dpair, n_splats, n_pairs, max_pairs, grid_x,
+          tile_y_offset, rect_mask, early_stop);
     };
     if (block == 32) {
       launch(composite_bwd_kernel<32>, 256);

@@ -47,7 +47,10 @@
 // plain version's by a few ulp and decide nothing. The TPU kernel's 128-lane
 // aligned windows with phase masks, its log-space triangular-matmul cumsum
 // and its DMA overhang pad are answers to TPU limits and are not carried
-// over.
+// over. A stack of B views is one launch on a (tiles, B) grid: block
+// (t, v) composites tile t of view v, whose feature rows, pair stream, tile
+// ranges, background and canvas lie B-major at per-view strides (the TPU
+// kernel's batch grid axis under vmap).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -121,12 +124,21 @@ template <int B>
 __global__ void __launch_bounds__(B * B / 4, 4) composite_fwd_kernel(
     const float4* __restrict__ gfeat, const int* __restrict__ gauss_s,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
-    const float* __restrict__ bg, float* __restrict__ out, int grid_x,
-    int tile_y_offset, int rect_mask, int early_stop) {
+    const float* __restrict__ bg, float* __restrict__ out, int n_splats, int n_pairs,
+    int grid_x, int tile_y_offset, int rect_mask, int early_stop) {
   constexpr int kPix = B * B;
   constexpr int kPatchCols = B / 16;
   // per pair: f0 = px py ca cb, f1 = cc op r g, f2 = b 1/z - -, the cull box
   __shared__ float4 rows[2][kSub][4];
+  {  // this grid column's view
+    const size_t v = blockIdx.y, n_tiles = gridDim.x;
+    gfeat += v * n_splats * 4;
+    gauss_s += v * n_pairs;
+    tile_start += v * n_tiles;
+    tile_count += v * n_tiles;
+    bg += v * 3;
+    out += v * n_tiles * 4 * kPix;
+  }
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
@@ -228,16 +240,16 @@ __global__ void __launch_bounds__(B * B / 4, 4) composite_fwd_kernel(
 
 extern "C" int gs_composite_fwd(
     const void* gfeat, const void* gauss_s, const void* tile_start,
-    const void* tile_count, const void* bg, void* out, int n_tiles,
-    int grid_x, int block, int tile_y_offset, int rect_mask, int early_stop,
-    void* stream) {
-  if (n_tiles > 0) {
+    const void* tile_count, const void* bg, void* out, int n_tiles, int views,
+    int n_splats, int n_pairs, int grid_x, int block, int tile_y_offset, int rect_mask,
+    int early_stop, void* stream) {
+  if (n_tiles > 0 && views > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     const auto launch = [&](auto kernel, int threads) {
-      kernel<<<n_tiles, threads, 0, s>>>(
+      kernel<<<dim3(n_tiles, views), threads, 0, s>>>(
           (const float4*)gfeat, (const int*)gauss_s, (const int*)tile_start,
-          (const int*)tile_count, (const float*)bg, (float*)out, grid_x,
-          tile_y_offset, rect_mask, early_stop);
+          (const int*)tile_count, (const float*)bg, (float*)out, n_splats, n_pairs,
+          grid_x, tile_y_offset, rect_mask, early_stop);
     };
     if (block == 32) {
       launch(composite_fwd_kernel<32>, 256);

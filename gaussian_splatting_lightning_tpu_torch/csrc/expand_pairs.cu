@@ -48,6 +48,10 @@
 //    which binning.expand_inputs never makes) takes the same search and walk
 //    over global memory, rows through `order`: slower, just as exact.
 //    Correctness does not rest on the invariant.
+// A stack of B views (the view-batched train step) is one launch: grid row
+// v = blockIdx.y expands view v, whose inputs and outputs lie B-major at
+// per-view strides (n splats, max_pairs slots, one total), so each view
+// keeps its own budget and its farthest splats drop first within it.
 // Integer arithmetic for `local`, `row` and the key (the TPU kernel's f32
 // arithmetic is exact in the range its caller allows). The cull test is
 // computed with __fmul_rn/__fadd_rn and the file is built with --fmad=false,
@@ -167,6 +171,16 @@ __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
     const int4* __restrict__ rows, const float2* __restrict__ p_pix,
     const int* __restrict__ total_ptr, int n, int max_pairs, int grid_x, int n_tiles,
     int block, int tile_y_offset, int* __restrict__ key, int* __restrict__ gauss) {
+  {  // this grid row's view
+    const size_t v = blockIdx.y;
+    offsets += v * n;
+    order += v * n;
+    rows += v * n;
+    p_pix += v * n;
+    total_ptr += v;
+    key += v * max_pairs;
+    gauss += v * max_pairs;
+  }
   extern __shared__ int4 smem[];  // the window's owners, one array per field
   int4* s_row = smem;
   float2* s_p = reinterpret_cast<float2*>(smem + kRun);
@@ -246,11 +260,11 @@ __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
 }  // namespace
 
 extern "C" int gs_expand_pairs(const void* offsets, const void* order, const void* rows,
-                               const void* p_pix, const void* total, int n, int max_pairs,
-                               int grid_x, int n_tiles, int block, int tile_y_offset,
-                               void* key, void* gauss, void* stream) {
-  if (max_pairs > 0) {
-    const int blocks = (max_pairs + kRun - 1) / kRun;
+                               const void* p_pix, const void* total, int n, int views,
+                               int max_pairs, int grid_x, int n_tiles, int block,
+                               int tile_y_offset, void* key, void* gauss, void* stream) {
+  if (max_pairs > 0 && views > 0) {
+    const dim3 blocks((max_pairs + kRun - 1) / kRun, views);
     expand_pairs_kernel<<<blocks, kThreads, kSmem, (cudaStream_t)stream>>>(
         (const int*)offsets, (const int*)order, (const int4*)rows, (const float2*)p_pix,
         (const int*)total, n, max_pairs, grid_x, n_tiles, block, tile_y_offset, (int*)key,

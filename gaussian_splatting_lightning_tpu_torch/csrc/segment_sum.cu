@@ -34,7 +34,11 @@
 // needs no atomics and gives the same bits run after run. This one
 // reduction over slot ranges stands in for the TPU's payload sort by splat
 // id, its bf16 u32 packing, its one-hot MXU matmul and its
-// inverse-permutation branch for dropped pairs.
+// inverse-permutation branch for dropped pairs. A stack of B views is one
+// launch with a grid row per view (blockIdx.y), whose dpair (M, 10),
+// offsets, ntiles, order and (N, 16) output lie B-major at per-view
+// strides: each view's splats get that view's sums, and the sum over views
+// is left to autograd (the broadcast of the shared parameters).
 
 #include <cuda_runtime.h>
 
@@ -85,6 +89,14 @@ __global__ void __launch_bounds__(kRanks) segment_sum_kernel(
     const float* __restrict__ dpair, const int* __restrict__ offsets,
     const int* __restrict__ ntiles, const int* __restrict__ order,
     float* __restrict__ out, int n, int max_pairs) {
+  {  // this grid row's view
+    const size_t v = blockIdx.y;
+    dpair += v * max_pairs * kGrad;
+    offsets += v * n;
+    ntiles += v * n;
+    order += v * n;
+    out += v * n * kOut;
+  }
   __shared__ float4 buf4[kQuads];
   __shared__ int s_lo[kRanks], s_hi[kRanks], s_ord[kRanks], s_long[kRanks];
   __shared__ int s_warp_long[kWarps];
@@ -185,9 +197,9 @@ __global__ void __launch_bounds__(kRanks) segment_sum_kernel(
 
 extern "C" int gs_segment_sum(const void* dpair, const void* offsets,
                               const void* ntiles, const void* order, void* out,
-                              int n, int max_pairs, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kRanks - 1) / kRanks;
+                              int n, int max_pairs, int views, void* stream) {
+  if (n > 0 && views > 0) {
+    const dim3 blocks((n + kRanks - 1) / kRanks, views);
     segment_sum_kernel<<<blocks, kRanks, 0, (cudaStream_t)stream>>>(
         (const float*)dpair, (const int*)offsets, (const int*)ntiles,
         (const int*)order, (float*)out, n, max_pairs);

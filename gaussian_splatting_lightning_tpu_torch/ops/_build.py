@@ -52,10 +52,10 @@ def nvcc_flags(name: str) -> tuple:
 # c_void_p, or ctypes would pass them as 32-bit ints
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
-    "expand_pairs": ("gs_expand_pairs", [_VP] * 5 + [_I] * 6 + [_VP] * 3),
-    "composite_fwd": ("gs_composite_fwd", [_VP] * 6 + [_I] * 6 + [_VP]),
-    "composite_bwd": ("gs_composite_bwd", [_VP] * 8 + [_I] * 6 + [_VP]),
-    "segment_sum": ("gs_segment_sum", [_VP] * 5 + [_I] * 2 + [_VP]),
+    "expand_pairs": ("gs_expand_pairs", [_VP] * 5 + [_I] * 7 + [_VP] * 3),
+    "composite_fwd": ("gs_composite_fwd", [_VP] * 6 + [_I] * 9 + [_VP]),
+    "composite_bwd": ("gs_composite_bwd", [_VP] * 8 + [_I] * 10 + [_VP]),
+    "segment_sum": ("gs_segment_sum", [_VP] * 5 + [_I] * 3 + [_VP]),
     "blur": ("gs_blur_valid", [_VP] * 2 + [_I] * 4 + [_VP]),
 }
 

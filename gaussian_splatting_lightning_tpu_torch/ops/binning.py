@@ -17,7 +17,12 @@ package's:
 4. Tile ranges come from T+1 searchsorted queries over the sorted keys.
 
 Only step 2 is a kernel; the sorts and searches are PyTorch on the device,
-as they were XLA outside any kernel in the JAX package. ``build_tile_bins``
+as they were XLA outside any kernel in the JAX package. ``expand_inputs``,
+``expand_pairs`` and ``build_sorted_bins`` also take a stack of B views
+(``Preprocessed`` fields (B, N, ...)): every stage then runs once for all
+views along the last axis, K1 in one launch, and each view keeps its own
+``max_pairs`` budget and drops its own farthest splats, as ``vmap`` of the
+JAX function does. ``build_tile_bins``
 is the tiled route's binning (``ops/rasterize_tiled.py``): the same stages
 in plain PyTorch with no cull, its pairs then laid out per tile by
 ``build_tile_table``.
@@ -49,7 +54,8 @@ ROW = 4
 class ExpandInputs(NamedTuple):
     """K1's inputs: the slot starts, the depth order and the per-splat fields
     K1 reads, in original splat order. Depth rank g's fields are those of
-    splat ``order[g]``."""
+    splat ``order[g]``. For a stack of B views every field has a leading B
+    (``total`` is then (B,))."""
 
     offsets: torch.Tensor  # (N,) int32 exclusive prefix sum of ntiles[order]
     order: torch.Tensor  # (N,) int32 depth permutation (original splat ids)
@@ -62,7 +68,8 @@ class ExpandInputs(NamedTuple):
 
 class SortedBins(NamedTuple):
     """The tile-sorted pair stream, field for field the tuple the JAX
-    ``build_sorted_bins`` returns (all int32)."""
+    ``build_sorted_bins`` returns (all int32); a leading B on every field for
+    a stack of B views."""
 
     gauss_s: torch.Tensor  # (M,) original splat id per sorted pair
     slot_s: torch.Tensor  # (M,) expansion slot per sorted pair
@@ -191,11 +198,30 @@ def build_tile_table(bins: TileBins, n_tiles: int, capacity: int) -> torch.Tenso
     return table[:n_tiles, :capacity]
 
 
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the last axis, per view for (B, N) arrays."""
+    return x[idx] if idx.dim() == 1 else torch.gather(x, -1, idx.long())
+
+
+def _exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive int32 prefix sum along the last axis. A (B, N) stack is
+    scanned as one flat array and each view's start subtracted: PyTorch's
+    scan along the last axis of a 2-D int tensor took 1.4-1.5 ms on the
+    H100 at N = 1M, the flat scan what a 1-D one takes."""
+    if x.dim() == 1:
+        return torch.cumsum(x, 0, dtype=torch.int32) - x
+    flat = torch.cumsum(x.reshape(-1), 0, dtype=torch.int32).reshape(x.shape)
+    start = torch.cat([flat.new_zeros(1), flat[:-1, -1]])  # the views before each
+    return flat - x - start[:, None]
+
+
 def expand_inputs(
     prep: Preprocessed, grid_x: int, grid_y: int, tile_y_offset: int,
     grid_y_local: int, block: int,
 ) -> tuple[ExpandInputs, torch.Tensor]:
-    """K1's inputs from ``prep``, plus ``ntiles`` in original order.
+    """K1's inputs from ``prep``, plus ``ntiles`` in original order; for a
+    stack of views (fields (B, N, ...)) each view's, from one pass of ops
+    along the last axis (a per-view depth sort and exclusive cumsum).
 
     The JAX package's ``_expand_keys`` stacks K1's fields into one table and
     gathers its rows by ``order``. Here nx and y0 are written into their
@@ -209,12 +235,12 @@ def expand_inputs(
     x0, y0g, x1, y1g = tf.tile_rect(
         p_pix, prep.radius_bin.detach(), grid_x, grid_y, block, block
     )
-    rows = torch.empty((x0.shape[0], ROW), dtype=torch.int32, device=x0.device)
-    rows[:, X0] = x0
-    rows[:, CULL_R2] = prep.cull_r2.detach().view(torch.int32)
-    y0 = torch.clamp(y0g - tile_y_offset, 0, grid_y_local, out=rows[:, Y0])
+    rows = torch.empty(x0.shape + (ROW,), dtype=torch.int32, device=x0.device)
+    rows[..., X0] = x0
+    rows[..., CULL_R2] = prep.cull_r2.detach().view(torch.int32)
+    y0 = torch.clamp(y0g - tile_y_offset, 0, grid_y_local, out=rows[..., Y0])
     y1 = torch.clamp(y1g - tile_y_offset, 0, grid_y_local)
-    nx = torch.clamp_min(x1 - x0, 0, out=rows[:, NX])
+    nx = torch.clamp_min(x1 - x0, 0, out=rows[..., NX])
     ny = torch.clamp_min(y1 - y0, 0)
     ntiles = torch.where(prep.visible, nx * ny, torch.zeros_like(nx)).to(torch.int32)
 
@@ -222,10 +248,10 @@ def expand_inputs(
     live = prep.visible & (ntiles > 0)
     depth_key = torch.where(live, prep.depth.detach(),
                             torch.full_like(prep.depth, float("inf")))
-    order = torch.argsort(depth_key, stable=True).to(torch.int32)
-    ntiles_s = ntiles[order]
-    offsets = torch.cumsum(ntiles_s, 0, dtype=torch.int32) - ntiles_s
-    total = offsets[-1] + ntiles_s[-1]
+    order = torch.argsort(depth_key, dim=-1, stable=True).to(torch.int32)
+    ntiles_s = _take(ntiles, order)
+    offsets = _exclusive_cumsum(ntiles_s)
+    total = offsets[..., -1] + ntiles_s[..., -1]
     return ExpandInputs(offsets, order, rows, p_pix, total), ntiles
 
 
@@ -233,7 +259,13 @@ def expand_pairs_plain(
     inp: ExpandInputs, max_pairs: int, grid_x: int, n_tiles: int,
     tile_y_offset: int = 0, block: int = BLOCK_X,
 ):
-    """Plain PyTorch version of K1: (key, gauss), each (max_pairs,) int32."""
+    """Plain PyTorch version of K1: (key, gauss), each (max_pairs,) int32, or
+    (B, max_pairs) for a stack of views, which it expands one at a time."""
+    if inp.offsets.dim() == 2:
+        per_view = [expand_pairs_plain(ExpandInputs(*(t[v] for t in inp)), max_pairs,
+                                       grid_x, n_tiles, tile_y_offset, block)
+                    for v in range(inp.offsets.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*per_view))
     n = inp.offsets.shape[0]
     slot = torch.arange(max_pairs, dtype=torch.int32, device=inp.offsets.device)
     g = torch.clamp(torch.searchsorted(inp.offsets, slot, right=True) - 1, 0, n - 1)
@@ -265,7 +297,9 @@ def expand_pairs(
     tile_y_offset: int = 0, block: int = BLOCK_X,
 ):
     """K1 wrapper: launches ``csrc/expand_pairs.cu`` on CUDA tensors, runs the
-    plain version on CPU tensors.
+    plain version on CPU tensors. A stack of B views (every field with a
+    leading B) takes one launch with a grid row per view and gives
+    (B, max_pairs) keys and ids.
 
     Precondition, as ``expand_inputs`` makes it: ``offsets`` is the exclusive
     cumsum of ``ntiles[order]`` (so it never decreases), ``total`` its sum,
@@ -282,20 +316,23 @@ def expand_pairs(
     for name in ExpandInputs._fields:
         dtype = torch.float32 if name == "p_pix" else torch.int32
         _build.check_tensor(getattr(inp, name), name, dtype, dev)
-    n = inp.offsets.shape[0]
+    lead = tuple(inp.offsets.shape[:-1])
+    n = inp.offsets.shape[-1]
     shapes = tuple(tuple(t.shape) for t in inp)
-    if n == 0 or shapes != ((n,), (n,), (n, ROW), (n, 2), ()):
-        raise ValueError(f"expand_pairs: need offsets, order (N,), rows (N, {ROW}), "
-                         f"p_pix (N, 2) and total () with N > 0, got {shapes}")
+    want = tuple(lead + s for s in ((n,), (n,), (n, ROW), (n, 2), ()))
+    if n == 0 or len(lead) > 1 or shapes != want:
+        raise ValueError(f"expand_pairs: need offsets, order ([B,] N), rows ([B,] N, {ROW}), "
+                         f"p_pix ([B,] N, 2) and total ([B]) with N > 0, got {shapes}")
     if inp.rows.data_ptr() % 16 or inp.p_pix.data_ptr() % 8:
         raise ValueError("expand_pairs: rows and p_pix must start on a 16- and an "
                          "8-byte boundary")
-    key = torch.empty(max_pairs, dtype=torch.int32, device=dev)
+    key = torch.empty(lead + (max_pairs,), dtype=torch.int32, device=dev)
     gauss = torch.empty_like(key)
     lib = _build.load("expand_pairs")
     p = _build.ptr
+    views = lead[0] if lead else 1
     rc = lib.gs_expand_pairs(
-        *(p(t) for t in inp), n, max_pairs, grid_x, n_tiles, block, tile_y_offset,
+        *(p(t) for t in inp), n, views, max_pairs, grid_x, n_tiles, block, tile_y_offset,
         p(key), p(gauss), _build.stream_of(key),
     )
     _build.check(lib, "expand_pairs", rc)
@@ -316,7 +353,9 @@ def build_sorted_bins(
 
     ``tile_y_offset``/``grid_y_local`` restrict binning to a band of tile rows
     (tile ids local to the band). ``plain`` runs K1's plain version on any
-    device. Outputs match the JAX function's eleven, in its order.
+    device. Outputs match the JAX function's eleven, in its order; for a
+    stack of views (``prep`` fields (B, N, ...)) each has a leading B, from
+    one stable sort and one ``searchsorted`` along the last axis.
     """
     if grid_y_local is None:
         grid_y_local = grid_y
@@ -327,14 +366,15 @@ def build_sorted_bins(
     key, gauss = expand(inp, max_pairs, grid_x, n_tiles, tile_y_offset, block)
 
     # ONE stable sort groups pairs by tile while preserving depth order
-    keys_s, perm = torch.sort(key, stable=True)
-    gauss_s = gauss[perm]
+    keys_s, perm = torch.sort(key, dim=-1, stable=True)
+    gauss_s = _take(gauss, perm)
     slot_s = perm.to(torch.int32)
 
     t_ids = torch.arange(n_tiles + 1, dtype=torch.int32, device=key.device)
+    t_ids = t_ids.expand(key.shape[:-1] + t_ids.shape).contiguous()
     bounds = torch.searchsorted(keys_s, t_ids, out_int32=True)
-    tile_start = bounds[:-1]
-    tile_count = bounds[1:] - bounds[:-1]
+    tile_start = bounds[..., :-1].contiguous()
+    tile_count = bounds[..., 1:] - bounds[..., :-1]
     astart = torch.div(tile_start, CHUNK, rounding_mode="floor") * CHUNK
     phase = tile_start - astart
     nchunk = torch.div(phase + tile_count + CHUNK - 1, CHUNK, rounding_mode="floor")

@@ -47,7 +47,8 @@ class TilingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Preprocessed:
-    """Per-Gaussian screen-space quantities (all (N, ...))."""
+    """Per-Gaussian screen-space quantities (all (N, ...), or (B, N, ...) for
+    a stack of B views)."""
 
     p_pix: torch.Tensor  # (N, 2) pixel-space means
     depth: torch.Tensor  # (N,) view-space z
@@ -77,7 +78,13 @@ def preprocess(
     means2d_ndc_offset: Optional[torch.Tensor] = None,  # (N, 2) zeros whose
     # gradient is the densification screen-space signal (NDC units)
 ) -> Preprocessed:
+    """One pass of broadcast ops. A stacked ``camera`` (B views,
+    ``stack_cameras``) with a (B, N, 2) offset gives every field a leading B:
+    the splats are shared, the view-dependent quantities are per view."""
     opacities = opacities.reshape(-1)
+    tanx, tany = camera.tanfovx, camera.tanfovy
+    if camera.views is not None:  # (B, ...) views broadcast over (N, ...) splats
+        tanx, tany = tanx[:, None], tany[:, None]
     p_view = tf.apply_extrinsic(means3d, camera.viewmatrix)
     p_ndc = tf.apply_projection(means3d, camera.projmatrix)
     if means2d_ndc_offset is not None:
@@ -86,12 +93,11 @@ def preprocess(
     if alive is not None:
         visible = visible & alive
 
-    focal_x = (width * 0.5) / camera.tanfovx
-    focal_y = (height * 0.5) / camera.tanfovy
+    focal_x = (width * 0.5) / tanx
+    focal_y = (height * 0.5) / tany
     cov6 = tf.build_cov3d(scales, quats)
     cov2d = tf.project_cov3d_ewa(
-        means3d, cov6, camera.viewmatrix, focal_x, focal_y,
-        camera.tanfovx, camera.tanfovy,
+        means3d, cov6, camera.viewmatrix, focal_x, focal_y, tanx, tany,
     )
     conic, radius, valid, opacity_scale, lam_max = tf.conic_and_radius(
         cov2d, antialias
@@ -111,6 +117,8 @@ def preprocess(
 
     rgb = sh_lib.sh_to_rgb(sh, means3d, camera.campos, sh_degree, max_sh_degree)
     p_pix = tf.ndc_to_pix(p_ndc, width, height)
+    if camera.views is not None:  # SH degree 0 has no view direction
+        rgb = rgb.expand(p_pix.shape[:-1] + (3,))
     return Preprocessed(
         p_pix=p_pix,
         depth=p_view[..., 2],
@@ -129,6 +137,6 @@ class RenderOutput:
     """Mirrors the reference rasterizer's return tuple
     (rendered_image, radii, depth_image)."""
 
-    image: torch.Tensor  # (3, H, W)
-    radii: torch.Tensor  # (N,) float, 0 for culled splats
-    depth: torch.Tensor  # (1, H, W) inverse-depth-weighted (sum w/z)
+    image: torch.Tensor  # (3, H, W); (B, 3, H, W) for a stack of views
+    radii: torch.Tensor  # (N,) float, 0 for culled splats; (B, N)
+    depth: torch.Tensor  # (1, H, W) inverse-depth-weighted (sum w/z); (B, 1, H, W)

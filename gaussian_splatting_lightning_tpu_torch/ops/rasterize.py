@@ -24,6 +24,13 @@ splat's contiguous slot range into the (N, 16) gradient of the feature
 table. Autograd carries that gradient on through ``feature_table`` and
 ``preprocess`` to the parameters. Pair gradients stay f32: the JAX package's
 bf16 routing was an answer to its sort payload and has no switch here.
+
+A stack of B views (a stacked ``Camera``, the view-batched train step) runs
+the same path once for all views, as ``vmap`` gives the JAX kernels a batch
+grid axis: ``preprocess`` and the feature table carry a leading B, the
+binning sorts along the last axis, and K1-K4 each take one launch with a
+grid axis per view. The kernels' wrappers take one view's arrays or a
+stack's, and their plain versions walk a stack one view at a time.
 """
 
 from __future__ import annotations
@@ -54,7 +61,8 @@ F_X0, F_X1, F_Y0, F_Y1 = 10, 11, 12, 13
 
 
 def feature_table(prep, width: int, height: int, block: int) -> torch.Tensor:
-    """(N, NFEAT) f32 per-splat feature rows in original splat order."""
+    """(N, NFEAT) f32 per-splat feature rows in original splat order
+    ((B, N, NFEAT) for a stack of views)."""
     zeros = torch.zeros_like(prep.depth)
     if block != 16:
         g16x, g16y = binning.grid_shape(width, height, 16, 16)
@@ -69,14 +77,14 @@ def feature_table(prep, width: int, height: int, block: int) -> torch.Tensor:
                          torch.ones_like(prep.depth))
     return torch.stack(
         [
-            prep.p_pix[:, 0], prep.p_pix[:, 1],
-            prep.conic[:, 0], prep.conic[:, 1], prep.conic[:, 2],
+            prep.p_pix[..., 0], prep.p_pix[..., 1],
+            prep.conic[..., 0], prep.conic[..., 1], prep.conic[..., 2],
             prep.opacity,
-            prep.rgb[:, 0], prep.rgb[:, 1], prep.rgb[:, 2],
+            prep.rgb[..., 0], prep.rgb[..., 1], prep.rgb[..., 2],
             1.0 / safe_z,
             *rect, zeros, zeros,
         ],
-        dim=1,
+        dim=-1,
     ).contiguous()
 
 
@@ -173,8 +181,18 @@ def composite_fwd_plain(
     ``return_work`` it also returns, per tile, the number of pairs
     composited before the early stop and the number of (pair, pixel)
     evaluations among them that pass the kill and the rect (the work K2's
-    bound counts).
+    bound counts). A stack of views (gfeat (B, N, NFEAT), bins and ``bg``
+    with a leading B) is walked one view at a time.
     """
+    if gfeat.dim() == 3:
+        per_view = [composite_fwd_plain(*(x[v] for x in (gfeat, gauss_s, tile_start,
+                                                          tile_count, bg)),
+                                        grid_x, block, tile_y_offset, early_stop,
+                                        return_work)
+                    for v in range(gfeat.shape[0])]
+        if return_work:
+            return tuple(torch.stack(x) for x in zip(*per_view))
+        return torch.stack(per_view)
     dev = gfeat.device
     n_tiles, pix = tile_start.shape[0], block * block
     px, py, sx, sy = _pixel_grid(n_tiles, grid_x, block, tile_y_offset, dev)
@@ -212,33 +230,43 @@ def composite_fwd(
     tile_y_offset: int = 0, early_stop: bool = True,
 ) -> torch.Tensor:
     """K2 wrapper: launches ``csrc/composite_fwd.cu`` on CUDA tensors, runs the
-    plain version on CPU tensors. Returns (T, NOUT, block*block) f32."""
+    plain version on CPU tensors. Returns (T, NOUT, block*block) f32, or
+    (B, T, NOUT, block*block) for a stack of B views (every input with a
+    leading B), one launch for all of them."""
     if gfeat.device.type == "cpu":
         return composite_fwd_plain(gfeat, gauss_s, tile_start, tile_count, bg,
                                    grid_x, block, tile_y_offset, early_stop)
     if block not in (16, 32):
         raise ValueError(f"K2 takes 16 or 32 px tiles, got {block}")
+    single = gfeat.dim() == 2
+    if single:
+        gfeat, gauss_s, tile_start, tile_count, bg = (
+            x[None] for x in (gfeat, gauss_s, tile_start, tile_count, bg))
     dev = gfeat.device
-    n_tiles = tile_start.shape[0]
+    views, n_splats = gfeat.shape[:2]
+    n_tiles = tile_start.shape[-1]
     _build.check_tensor(gfeat, "gfeat", torch.float32, dev)
-    if gfeat.dim() != 2 or gfeat.shape[1] != NFEAT or gfeat.data_ptr() % 16:
-        raise ValueError(f"gfeat must be a 16-byte aligned (N, {NFEAT}) table")
+    if gfeat.dim() != 3 or gfeat.shape[2] != NFEAT or gfeat.data_ptr() % 16:
+        raise ValueError(f"gfeat must be a 16-byte aligned ([B,] N, {NFEAT}) table")
     _build.check_tensor(gauss_s, "gauss_s", torch.int32, dev)
     _build.check_tensor(tile_start, "tile_start", torch.int32, dev)
     _build.check_tensor(tile_count, "tile_count", torch.int32, dev)
     _build.check_tensor(bg, "bg", torch.float32, dev)
-    if tile_count.shape != (n_tiles,) or bg.shape != (3,):
-        raise ValueError("tile_count must be (T,) and bg (3,)")
-    out = torch.empty(n_tiles, NOUT, block * block, dtype=torch.float32, device=dev)
+    if (gauss_s.dim() != 2 or gauss_s.shape[0] != views
+            or tile_start.shape != (views, n_tiles) or tile_count.shape != (views, n_tiles)
+            or bg.shape != (views, 3)):
+        raise ValueError("gauss_s must be ([B,] M), tile_start and tile_count ([B,] T) "
+                         "and bg ([B,] 3)")
+    out = torch.empty(views, n_tiles, NOUT, block * block, dtype=torch.float32, device=dev)
     lib = _build.load("composite_fwd")
     p = _build.ptr
     rc = lib.gs_composite_fwd(
         p(gfeat), p(gauss_s), p(tile_start), p(tile_count), p(bg), p(out),
-        n_tiles, grid_x, block, tile_y_offset, int(block != 16),
-        int(early_stop), _build.stream_of(out),
+        n_tiles, views, n_splats, gauss_s.shape[1], grid_x, block, tile_y_offset,
+        int(block != 16), int(early_stop), _build.stream_of(out),
     )
     _build.check(lib, "composite_fwd", rc)
-    return out
+    return out[0] if single else out
 
 
 def composite_bwd_plain(
@@ -252,8 +280,15 @@ def composite_bwd_plain(
 
     Walks the k-th pair of every tile at once with K2's alpha chain and
     stop, and rounds the prefix/suffix chain op by op in K3's order, so each
-    pixel's terms equal the kernel's; only the pixel sums differ in order.
+    pixel's terms equal the kernel's; only the pixel sums differ in order. A
+    stack of views gives (B, max_pairs, NGRAD), one view at a time.
     """
+    if gfeat.dim() == 3:
+        return torch.stack([composite_bwd_plain(
+            *(x[v] for x in (gfeat, gauss_s, slot_s, tile_start, tile_count, out,
+                             grad_out)),
+            grid_x, block, max_pairs, tile_y_offset, early_stop)
+            for v in range(gfeat.shape[0])])
     dev = gfeat.device
     n_tiles, pix = tile_start.shape[0], block * block
     px, py, sx, sy = _pixel_grid(n_tiles, grid_x, block, tile_y_offset, dev)
@@ -305,38 +340,49 @@ def composite_bwd(
     tile_y_offset: int = 0, early_stop: bool = True,
 ) -> torch.Tensor:
     """K3 wrapper: launches ``csrc/composite_bwd.cu`` on CUDA tensors, runs
-    the plain version on CPU tensors. Returns (max_pairs, NGRAD) f32."""
+    the plain version on CPU tensors. Returns (max_pairs, NGRAD) f32, or
+    (B, max_pairs, NGRAD) for a stack of B views, one launch for all."""
     args = (gfeat, gauss_s, slot_s, tile_start, tile_count, out, grad_out,
             grid_x, block, max_pairs, tile_y_offset, early_stop)
     if gfeat.device.type == "cpu":
         return composite_bwd_plain(*args)
     if block not in (16, 32):
         raise ValueError(f"K3 takes 16 or 32 px tiles, got {block}")
+    single = gfeat.dim() == 2
+    if single:
+        gfeat, gauss_s, slot_s, tile_start, tile_count, out, grad_out = (
+            x[None] for x in (gfeat, gauss_s, slot_s, tile_start, tile_count, out,
+                              grad_out))
     dev = gfeat.device
-    n_tiles = tile_start.shape[0]
+    views, n_splats = gfeat.shape[:2]
+    n_tiles = tile_start.shape[-1]
     _build.check_tensor(gfeat, "gfeat", torch.float32, dev)
-    if gfeat.dim() != 2 or gfeat.shape[1] != NFEAT or gfeat.data_ptr() % 16:
-        raise ValueError(f"gfeat must be a 16-byte aligned (N, {NFEAT}) table")
+    if gfeat.dim() != 3 or gfeat.shape[2] != NFEAT or gfeat.data_ptr() % 16:
+        raise ValueError(f"gfeat must be a 16-byte aligned ([B,] N, {NFEAT}) table")
     for name, t in (("gauss_s", gauss_s), ("slot_s", slot_s),
                     ("tile_start", tile_start), ("tile_count", tile_count)):
         _build.check_tensor(t, name, torch.int32, dev)
-    canvas = (n_tiles, NOUT, block * block)
+        if t.dim() != 2 or t.shape[0] != views:
+            raise ValueError(f"{name} must have the views' leading axis ({views})")
+    canvas = (views, n_tiles, NOUT, block * block)
     for name, t in (("out", out), ("grad_out", grad_out)):
         _build.check_tensor(t, name, torch.float32, dev)
         if tuple(t.shape) != canvas:
-            raise ValueError(f"{name} must be {canvas}, got {tuple(t.shape)}")
-    if slot_s.shape != gauss_s.shape or int(slot_s.shape[0]) > max_pairs:
+            raise ValueError(f"{name} must be {canvas[int(single):]}, got "
+                             f"{tuple(t.shape)[int(single):]}")
+    if slot_s.shape != gauss_s.shape or int(slot_s.shape[1]) > max_pairs:
         raise ValueError("slot_s must match gauss_s and index max_pairs rows")
-    dpair = torch.zeros(max_pairs, NGRAD, dtype=torch.float32, device=dev)
+    dpair = torch.zeros(views, max_pairs, NGRAD, dtype=torch.float32, device=dev)
     lib = _build.load("composite_bwd")
     p = _build.ptr
     rc = lib.gs_composite_bwd(
         p(gfeat), p(gauss_s), p(slot_s), p(tile_start), p(tile_count), p(out),
-        p(grad_out), p(dpair), n_tiles, grid_x, block, tile_y_offset,
-        int(block != 16), int(early_stop), _build.stream_of(dpair),
+        p(grad_out), p(dpair), n_tiles, views, n_splats, gauss_s.shape[1], max_pairs,
+        grid_x, block, tile_y_offset, int(block != 16), int(early_stop),
+        _build.stream_of(dpair),
     )
     _build.check(lib, "composite_bwd", rc)
-    return dpair
+    return dpair[0] if single else dpair
 
 
 def segment_sum_plain(dpair: torch.Tensor, offsets: torch.Tensor,
@@ -344,7 +390,11 @@ def segment_sum_plain(dpair: torch.Tensor, offsets: torch.Tensor,
     """Plain PyTorch version of K4: (N, NFEAT) f32 per-splat gradient table.
 
     Depth rank j owns the slots [offsets[j], min(offsets[j] + ntiles[order[j]],
-    M)) of ``dpair`` (M, NGRAD); their sum lands in row ``order[j]``."""
+    M)) of ``dpair`` (M, NGRAD); their sum lands in row ``order[j]``. A stack
+    of views gives (B, N, NFEAT), one view at a time."""
+    if dpair.dim() == 3:
+        return torch.stack([segment_sum_plain(dpair[v], offsets[v], ntiles[v], order[v])
+                            for v in range(dpair.shape[0])])
     n, max_pairs = offsets.shape[0], dpair.shape[0]
     slot = torch.arange(max_pairs, dtype=torch.int32, device=dpair.device)
     rank = torch.clamp(torch.searchsorted(offsets, slot, right=True) - 1, 0, n - 1)
@@ -363,26 +413,31 @@ def segment_sum(dpair: torch.Tensor, offsets: torch.Tensor,
     The kernel takes ``offsets`` to be the exclusive cumsum of
     ``ntiles[order]`` (as ``binning.build_sorted_bins`` makes it): rank j's
     range ends where rank j + 1's starts, and only the last rank reads
-    ``ntiles``."""
+    ``ntiles``. A stack of B views (dpair (B, M, NGRAD), the rest (B, N))
+    takes one launch and gives (B, N, NFEAT): each view's own sums."""
     if dpair.device.type == "cpu":
         return segment_sum_plain(dpair, offsets, ntiles, order)
+    single = dpair.dim() == 2
+    if single:
+        dpair, offsets, ntiles, order = (x[None] for x in (dpair, offsets, ntiles, order))
     dev = dpair.device
     _build.check_tensor(dpair, "dpair", torch.float32, dev)
-    if dpair.dim() != 2 or dpair.shape[1] != NGRAD or dpair.data_ptr() % 16:
-        raise ValueError(f"dpair must be a 16-byte aligned (M, {NGRAD}) table, "
-                         f"got {tuple(dpair.shape)}")
-    n = offsets.shape[0]
+    if dpair.dim() != 3 or dpair.shape[2] != NGRAD or dpair.data_ptr() % 16:
+        raise ValueError(f"dpair must be a 16-byte aligned ([B,] M, {NGRAD}) table, "
+                         f"got {tuple(dpair.shape)[int(single):]}")
+    views, n = dpair.shape[0], offsets.shape[-1]
     for name, t in (("offsets", offsets), ("ntiles", ntiles), ("order", order)):
         _build.check_tensor(t, name, torch.int32, dev)
-        if t.shape != (n,):
-            raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
-    out = torch.empty(n, NFEAT, dtype=torch.float32, device=dev)
+        if t.shape != (views, n):
+            raise ValueError(f"{name} must be {(views, n)[int(single):]}, got "
+                             f"{tuple(t.shape)[int(single):]}")
+    out = torch.empty(views, n, NFEAT, dtype=torch.float32, device=dev)
     lib = _build.load("segment_sum")
     p = _build.ptr
     rc = lib.gs_segment_sum(p(dpair), p(offsets), p(ntiles), p(order), p(out),
-                            n, dpair.shape[0], _build.stream_of(out))
+                            n, dpair.shape[1], views, _build.stream_of(out))
     _build.check(lib, "segment_sum", rc)
-    return out
+    return out[0] if single else out
 
 
 class PairComposite(torch.autograd.Function):
@@ -390,7 +445,8 @@ class PairComposite(torch.autograd.Function):
     ``make_pair_pipeline``: forward K2 on the (N, NFEAT) feature table,
     backward K3 then K4, returning the table's gradient (rows 10-15 zero)
     and no gradient for the bins or the background. ``plain`` runs the
-    three plain versions on any device."""
+    three plain versions on any device. A stack of views flows through as
+    one launch of each kernel."""
 
     @staticmethod
     def forward(ctx, gfeat, bins, bg, grid_x, block, max_pairs, tile_y_offset,
@@ -418,11 +474,13 @@ class PairComposite(torch.autograd.Function):
 
 
 def _assemble_cf(out_t, grid_x, grid_y, width, height, block):
-    """(T, C, pix) channel-first tile canvas -> (C, H, W) image."""
-    c = out_t.shape[1]
-    t = out_t.reshape(grid_y, grid_x, c, block, block)
-    t = t.permute(2, 0, 3, 1, 4).reshape(c, grid_y * block, grid_x * block)
-    return t[:, :height, :width]
+    """([B,] T, C, pix) channel-first tile canvas -> ([B,] C, H, W) image."""
+    lead, c = out_t.shape[:-3], out_t.shape[-2]
+    t = out_t.reshape(*lead, grid_y, grid_x, c, block, block)
+    b = len(lead)
+    t = t.permute(*range(b), b + 2, b, b + 3, b + 1, b + 4)
+    t = t.reshape(*lead, c, grid_y * block, grid_x * block)
+    return t[..., :height, :width]
 
 
 def rasterize(
@@ -436,7 +494,15 @@ def rasterize(
     contract, differentiable in every float input. ``plain`` runs the
     kernels' plain versions on any device; otherwise CUDA tensors go through
     the kernels and CPU tensors through the plain versions. ``prep`` accepts
-    an externally computed ``Preprocessed``."""
+    an externally computed ``Preprocessed``.
+
+    A stacked ``camera`` (B views, ``core.camera.stack_cameras``) with a
+    (3,) or (B, 3) ``background`` and a (B, N, 2) offset renders all B in
+    one pass: image (B, 3, H, W), depth (B, 1, H, W), radii (B, N), and
+    stats reduced as the JAX batched step reduces them (dropped pairs
+    summed, pairs and overflow maxed; the other counts summed or maxed
+    alike), with the per-view ``num_pairs_per_view`` and
+    ``num_dropped_pairs_per_view`` (B,) beside them."""
     config = config or TilingConfig()
     blk = config.resolve_block("cuda")
     if prep is None:
@@ -444,6 +510,7 @@ def rasterize(
             means3d, opacities, scales, quats, sh, camera, width, height,
             sh_degree, max_sh_degree, antialias, alive, means2d_ndc_offset,
         )
+    views = prep.depth.shape[0] if prep.depth.dim() == 2 else None
     grid_x, grid_y = binning.grid_shape(width, height, blk, blk)
     banded = grid_y_local is not None
     gy = grid_y_local if banded else grid_y
@@ -454,12 +521,16 @@ def rasterize(
         plain=plain,
     )
     gfeat = feature_table(prep, width, height, blk)
-    bg = torch.as_tensor(background, dtype=torch.float32).to(gfeat.device).reshape(3)
+    bg = torch.as_tensor(background, dtype=torch.float32).to(gfeat.device)
+    if views is None:
+        bg = bg.reshape(3)
+    else:
+        bg = bg.reshape(-1, 3).expand(views, 3).contiguous()
     out = PairComposite.apply(gfeat, bins, bg, grid_x, blk, max_pairs,
                               tile_y_offset, early_stop, plain)
 
     out_h = gy * blk if banded else height
-    imgd = _assemble_cf(out, grid_x, gy, width, out_h, blk)  # (NOUT, H, W)
+    imgd = _assemble_cf(out, grid_x, gy, width, out_h, blk)  # ([B,] NOUT, H, W)
     stats = {
         "num_pairs": bins.num_pairs,
         "num_dropped_pairs": bins.num_dropped,
@@ -469,5 +540,11 @@ def rasterize(
         # pairs left after the exact per-tile cull (what K2 composites)
         "num_binned_pairs": torch.sum(bins.tile_count),
     }
-    render = RenderOutput(image=imgd[0:3], radii=prep.radius, depth=imgd[3][None])
+    if views is not None:
+        stats.update(num_pairs=torch.max(bins.num_pairs),
+                     num_dropped_pairs=torch.sum(bins.num_dropped),
+                     num_pairs_per_view=bins.num_pairs,
+                     num_dropped_pairs_per_view=bins.num_dropped)
+    render = RenderOutput(image=imgd[..., 0:3, :, :], radii=prep.radius,
+                          depth=imgd[..., 3:4, :, :])
     return render, stats

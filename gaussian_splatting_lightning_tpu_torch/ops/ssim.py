@@ -97,9 +97,16 @@ def ssim_stack(img1: torch.Tensor, img2: torch.Tensor):
     Variances are taken on globally centred inputs (centred on each image's
     detached mean): exact for any constant shift, and in f32 the uncentred
     form loses about 7 digits on smooth renders. The images are zero-padded
-    first and shifted after, so pixels outside the image read as 0."""
-    c1 = img1.mean().detach()
-    c2 = img2.mean().detach()
+    first and shifted after, so pixels outside the image read as 0. Each of
+    the B images is centred on its own mean, as ``vmap`` of the JAX loss
+    centres each view in the view-batched step (the JAX ``ssim_map`` called
+    on a batch takes one mean for all, which differs only in rounding)."""
+    if img1.shape[0] == 1:
+        c1 = img1.mean().detach()
+        c2 = img2.mean().detach()
+    else:
+        c1 = img1.mean(dim=(1, 2, 3), keepdim=True).detach()
+        c2 = img2.mean(dim=(1, 2, 3), keepdim=True).detach()
     r = WINDOW // 2
     y1 = F.pad(img1, (r, r, r, r)) - c1
     y2 = F.pad(img2, (r, r, r, r)) - c2
@@ -136,7 +143,9 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, plain: bool = False) -> torch.T
     return ssim_map(img1, img2, plain).mean()
 
 
-def psnr(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
-    """Peak signal-to-noise ratio."""
-    mse = torch.mean((img1 - img2) ** 2)
+def psnr(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
+         dim=None) -> torch.Tensor:
+    """Peak signal-to-noise ratio; over ``dim`` only, e.g. per view."""
+    sq = (img1 - img2) ** 2
+    mse = torch.mean(sq) if dim is None else torch.mean(sq, dim=dim)
     return 10.0 * torch.log10(data_range ** 2 / torch.clamp_min(mse, 1e-12))

@@ -2,17 +2,19 @@
 
 Counterpart of the JAX package's ``scripts/eval.py``: render every selected
 view of a COLMAP or Blender scene and report per-view and mean PSNR, SSIM
-and L1 of the render clipped to [0, 1]. Renders go through the CUDA kernels
-under a pair budget sized for the evaluated views (``--use-oracle``: the
-readable oracle rasterizer), SSIM through the blur kernel.
+and L1 of the render clipped to [0, 1], and LPIPS with ``--lpips-weights``
+(an ``lpips_vgg16.npz`` in the layout of the JAX package's
+``scripts/export_lpips_weights.py``; ``ops/lpips.py``). Renders go through
+the CUDA kernels under a pair budget sized for the evaluated views
+(``--use-oracle``: the readable oracle rasterizer), SSIM through the blur
+kernel.
 
 Usage:
     python -m gaussian_splatting_lightning_tpu_torch.scripts.eval CKPT.ply \
         --colmap PATH --image-folder PATH [--resize-to 1600 | --downscale 0.5] \
         [--holdout-every 8] [--idx-file eval.txt] [--white-background] \
-        [--use-oracle] [--out metrics.json] [--device cuda]
-
-``--lpips-weights`` is refused: LPIPS is not ported yet.
+        [--use-oracle] [--lpips-weights lpips_vgg16.npz] [--out metrics.json] \
+        [--device cuda]
 """
 
 from __future__ import annotations
@@ -43,13 +45,13 @@ def main(argv=None):
     parser.add_argument("--use-oracle", action="store_true",
                         help="the readable oracle rasterizer (ops/rasterize_reference.py)")
     parser.add_argument("--lpips-weights", default=None,
-                        help="LPIPS is not ported yet: refused")
+                        help="path to an lpips_vgg16.npz (the JAX package's "
+                        "scripts/export_lpips_weights.py layout); adds LPIPS "
+                        "to the metrics")
     parser.add_argument("--out", default=None)
     parser.add_argument("--device", default="cuda",
                         help="cuda (the kernels) or cpu (their plain versions)")
     args = parser.parse_args(argv)
-    if args.lpips_weights:
-        parser.error("--lpips-weights: LPIPS is not ported yet")
 
     from gaussian_splatting_lightning_tpu_torch.core.camera import camera_from_matrices
     from gaussian_splatting_lightning_tpu_torch.data.dataset import ColmapDataset
@@ -67,6 +69,12 @@ def main(argv=None):
     from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
 
     scene = load_ply(args.checkpoint, device=args.device)
+    lpips_weights = None
+    if args.lpips_weights:
+        from gaussian_splatting_lightning_tpu_torch.ops.lpips import load_weights, lpips
+
+        lpips_weights = {k: torch.from_numpy(v).to(scene.device)
+                         for k, v in load_weights(args.lpips_weights).items()}
     if is_nerf_dataset(args.colmap):
         split = "test" if (Path(args.colmap) / "transforms_test.json").exists() else "train"
         ds = NerfDataset(
@@ -121,13 +129,22 @@ def main(argv=None):
             l1=float(torch.mean(torch.abs(image - gt))),
             render_ms=render_ms,
         )
+        if lpips_weights is not None:
+            sync()
+            t0 = time.perf_counter()
+            row["lpips"] = float(lpips(image, gt, lpips_weights))
+            row["lpips_ms"] = (time.perf_counter() - t0) * 1e3
         rows.append(row)
         print(f"{row['view']}: psnr={row['psnr']:.2f} ssim={row['ssim']:.4f} "
-              f"l1={row['l1']:.4f} render={render_ms:.2f} ms")
+              f"l1={row['l1']:.4f}"
+              + (f" lpips={row['lpips']:.4f}" if "lpips" in row else "")
+              + f" render={render_ms:.2f} ms")
 
-    mean = {k: float(np.mean([r[k] for r in rows])) for k in ("psnr", "ssim", "l1")}
+    keys = ("psnr", "ssim", "l1") + (("lpips",) if lpips_weights is not None else ())
+    mean = {k: float(np.mean([r[k] for r in rows])) for k in keys}
     print(f"MEAN over {len(rows)} views: psnr={mean['psnr']:.2f} "
-          f"ssim={mean['ssim']:.4f} l1={mean['l1']:.4f}")
+          f"ssim={mean['ssim']:.4f} l1={mean['l1']:.4f}"
+          + (f" lpips={mean['lpips']:.4f}" if "lpips" in mean else ""))
     result = {"views": rows, "mean": mean}
     if args.out:
         with open(args.out, "w") as f:

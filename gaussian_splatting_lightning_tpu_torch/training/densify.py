@@ -55,20 +55,30 @@ class DensifyConfig:
 
 def accumulate_stats(
     scene: GaussianScene,
-    radii: torch.Tensor,  # (C,) from the render
-    screenspace_grad: torch.Tensor,  # (C, 2) NDC mean gradients
+    radii: torch.Tensor,  # (C,) or (B, C) from the render
+    screenspace_grad: torch.Tensor,  # (C, 2) or (B, C, 2) NDC mean gradients
 ) -> GaussianScene:
-    """One view's update_max_radii2D / update_xyz_gradient
-    (gaussian_model.py:174-181), gated on radii > 0."""
+    """update_max_radii2D / update_xyz_gradient (gaussian_model.py:174-181),
+    gated on radii > 0. A leading view axis (the view-batched step) reduces
+    as B reference steps in a row would: the max of the radii, the sum of
+    the per-view gradient norms, and the count raised by the number of views
+    that saw the splat."""
     seen = radii > 0
     norms = torch.linalg.vector_norm(screenspace_grad[..., :2], dim=-1)
     contrib = torch.where(seen, norms, 0.0)
+    if radii.dim() == 2:
+        radii = torch.amax(radii, dim=0)
+        contrib = torch.sum(contrib, dim=0)
+        count = torch.sum(seen.to(scene.grad_count.dtype), dim=0)
+        seen = radii > 0
+    else:
+        count = seen.to(scene.grad_count.dtype)
     return dataclasses.replace(
         scene,
         max_radii2d=torch.where(
             seen, torch.maximum(scene.max_radii2d, radii), scene.max_radii2d),
         grad_accum=scene.grad_accum + contrib,
-        grad_count=scene.grad_count + seen.to(scene.grad_count.dtype),
+        grad_count=scene.grad_count + count,
     )
 
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_splatting_lightning_tpu_torch.ops.ssim import psnr, ssim
+from gaussian_splatting_lightning_tpu_torch.ops.ssim import psnr, ssim, ssim_map
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -27,4 +27,22 @@ def photometric_loss(pred: torch.Tensor, target: torch.Tensor,
         "recon": recon,
         "ssim": loss_ssim,
         "psnr": psnr(pred, target),
+    }
+
+
+def photometric_losses(pred: torch.Tensor, target: torch.Tensor,
+                       w_ssim: float = 0.2, plain: bool = False):
+    """``photometric_loss`` of each view of a (B, 3, H, W) stack: (loss (B,),
+    logs of (B,) tensors), as ``vmap`` of the JAX loss gives them. Each
+    view's SSIM is centred on its own mean; the blur runs once for all
+    views, forward and backward."""
+    views = (1, 2, 3)
+    recon = torch.mean(torch.abs(pred - target), dim=views)
+    loss_ssim = 1.0 - ssim_map(pred, target, plain).mean(dim=views)
+    loss = recon * (1.0 - w_ssim) + loss_ssim * w_ssim
+    return loss, {
+        "loss": loss,
+        "recon": recon,
+        "ssim": loss_ssim,
+        "psnr": psnr(pred, target, dim=views),
     }

@@ -1,10 +1,13 @@
 """The training loop: the step, the scene-changing events and their cadences.
 
-Counterpart of ``gaussian_splatting_lightning_tpu/training/trainer.py`` for
-one view per step and one device. One ``train_step`` is render -> loss ->
-backward -> Adam -> densification statistics, eager PyTorch around the
-kernels (K1 and K2 in the render, K5 in the loss and its backward, K3 and K4
-in the render's backward). The events that change the scene (densify/prune,
+Counterpart of ``gaussian_splatting_lightning_tpu/training/trainer.py`` on
+one device. One ``train_step`` is render -> loss -> backward -> Adam ->
+densification statistics, eager PyTorch around the kernels (K1 and K2 in the
+render, K5 in the loss and its backward, K3 and K4 in the render's
+backward). With ``batch_views`` B > 1 the step takes B views stacked along a
+leading axis and renders them in one pass (each kernel launched once for all
+B, as ``vmap`` gives the JAX kernels a batch grid axis); the loss is the
+mean over views. The events that change the scene (densify/prune,
 opacity reset, SH warm-up) run between steps on the cadences of the
 reference's ``on_train_batch_start`` (gs_lightning_module.py:144-161):
 
@@ -35,7 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gaussian_splatting_lightning_tpu_torch.core.camera import Camera, camera_from_matrices
+from gaussian_splatting_lightning_tpu_torch.core.camera import (
+    Camera,
+    camera_from_matrices,
+    stack_cameras,
+)
 from gaussian_splatting_lightning_tpu_torch.data.dataset import ViewSampler
 from gaussian_splatting_lightning_tpu_torch.models import gaussians as gm
 from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
@@ -43,7 +50,7 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
     GaussianParams,
     GaussianScene,
 )
-from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+from gaussian_splatting_lightning_tpu_torch.ops.common import RenderOutput, TilingConfig
 from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize
 from gaussian_splatting_lightning_tpu_torch.ops.rasterize_tiled import rasterize_tiled
 from gaussian_splatting_lightning_tpu_torch.training.densify import (
@@ -57,7 +64,10 @@ from gaussian_splatting_lightning_tpu_torch.training.exposure import (
     exposure_update,
     init_exposure,
 )
-from gaussian_splatting_lightning_tpu_torch.training.loss import photometric_loss
+from gaussian_splatting_lightning_tpu_torch.training.loss import (
+    photometric_loss,
+    photometric_losses,
+)
 from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
     AdamState,
     OptimizerConfig,
@@ -89,7 +99,7 @@ class TrainConfig:
     shrink_patience: int = 8  # checks below max_pairs/4 before the budget shrinks
     max_nan_rollbacks: int = 3  # non-finite loss: restore the newest checkpoint
     keep_last_ckpts: int = 3  # checkpoint retention; 0 keeps every checkpoint
-    batch_views: int = 1  # views per step; only 1 is ported
+    batch_views: int = 1  # views per step, stacked along a leading axis
     use_exposure: bool = False  # per-view affine colour compensation
     exposure_lr: float = 0.001
     rasterizer: str = "cuda"  # cuda | plain | xla
@@ -157,6 +167,22 @@ def render_scene(
     )
 
 
+def _render_each(live, camera, width, height, background, cfg, offset, rasterize_fn):
+    """A stack of views rendered one at a time (the tiled route has no view
+    axis), stacked as one batched render's output and stats."""
+    outs, stats = zip(*(render_scene(live, camera.view(v), width, height, background[v],
+                                     cfg.tiling, cfg.antialias,
+                                     means2d_ndc_offset=offset[v],
+                                     rasterize_fn=rasterize_fn)
+                        for v in range(camera.views)))
+    out = RenderOutput(*(torch.stack([getattr(o, f) for o in outs])
+                         for f in ("image", "radii", "depth")))
+    per = {k: torch.stack([s[k] for s in stats]) for k in stats[0]}
+    return out, {"num_dropped_pairs": per["num_dropped_pairs"].sum(),
+                 "num_tile_overflow": per["num_tile_overflow"].max(),
+                 "num_pairs": per["num_pairs"].max()}
+
+
 def step_gradients(cfg: TrainConfig, scene: GaussianScene, camera: Camera,
                    width: int, height: int, image, background, exp_mat=None,
                    depth_target=None):
@@ -165,37 +191,61 @@ def step_gradients(cfg: TrainConfig, scene: GaussianScene, camera: Camera,
     Returns (param_grads, screen_grads, exp_grad, radii, logs, stats):
     ``screen_grads`` (C, 2) is the gradient of the NDC offset added to every
     projected mean (the densification signal), ``exp_grad`` that of
-    ``exp_mat`` or None."""
+    ``exp_mat`` or None.
+
+    With ``cfg.batch_views`` B > 1 the camera is a stack of B views
+    (``stack_cameras``), ``image`` (B, 3, H, W), ``background`` (B, 3),
+    ``exp_mat`` (B, 3, 4) and ``depth_target`` (B, 1, H, W); the loss is the
+    mean of the views' losses and the logs the means of their logs.
+    ``screen_grads`` (B, C, 2) and ``exp_grad`` are then scaled by B, so each
+    view's is the gradient of its own loss, and ``radii`` is (B, C)."""
     rasterize_fn = resolve_rasterizer(cfg.rasterizer)
     plain = cfg.rasterizer == "plain"
+    views = cfg.batch_views if cfg.batch_views > 1 else None
     leaves = {k: getattr(scene.params, k).detach().requires_grad_() for k in PARAM_NAMES}
-    offset = torch.zeros(scene.capacity, 2, dtype=scene.params.xyz.dtype,
-                         device=scene.device, requires_grad=True)
+    offset = torch.zeros(((views,) if views else ()) + (scene.capacity, 2),
+                         dtype=scene.params.xyz.dtype, device=scene.device,
+                         requires_grad=True)
     inputs = [leaves[k] for k in PARAM_NAMES] + [offset]
     if exp_mat is not None:
         exp_mat = exp_mat.detach().requires_grad_()
         inputs.append(exp_mat)
     live = dataclasses.replace(scene, params=GaussianParams(**leaves))
     with torch.enable_grad():
-        out, stats = render_scene(live, camera, width, height, background,
-                                  cfg.tiling, cfg.antialias,
-                                  means2d_ndc_offset=offset, rasterize_fn=rasterize_fn)
+        if views and cfg.rasterizer == "xla":
+            out, stats = _render_each(live, camera, width, height, background, cfg,
+                                      offset, rasterize_fn)
+        else:
+            out, stats = render_scene(live, camera, width, height, background,
+                                      cfg.tiling, cfg.antialias,
+                                      means2d_ndc_offset=offset, rasterize_fn=rasterize_fn)
         rendered = out.image
         if exp_mat is not None:
             rendered = apply_exposure(exp_mat, rendered)
-        loss, logs = photometric_loss(rendered, image, cfg.w_ssim, plain)
+        losses = photometric_losses if views else photometric_loss
+        loss, logs = losses(rendered, image, cfg.w_ssim, plain)
         if cfg.w_depth > 0.0 and depth_target is not None:
             # inverse-depth L1: the depth output is sum(w / z)
-            d_l1 = torch.mean(torch.abs(out.depth - depth_target))
+            diff = torch.abs(out.depth - depth_target)
+            d_l1 = torch.mean(diff, dim=(1, 2, 3)) if views else torch.mean(diff)
             loss = loss + cfg.w_depth * d_l1
             logs = dict(logs, loss=loss, depth_l1=d_l1)
+        if views:  # the batch mean, and the mean of each log over the views
+            loss = torch.mean(loss)
+            logs = {k: torch.mean(v) for k, v in logs.items()}
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
     param_grads = GaussianParams(**dict(zip(PARAM_NAMES, grads)))
+    screen_grads = grads[len(PARAM_NAMES)]
     exp_grad = grads[len(PARAM_NAMES) + 1] if exp_mat is not None else None
+    if views:
+        # each view's own loss gradient, as the reference accumulates it
+        # (gs_lightning_module.py:175-178): undo the 1/B of the batch mean
+        screen_grads = screen_grads * views
+        if exp_grad is not None:
+            exp_grad = exp_grad * views
     logs = {k: v.detach() for k, v in logs.items()}
-    return (param_grads, grads[len(PARAM_NAMES)], exp_grad, out.radii.detach(),
-            logs, stats)
+    return param_grads, screen_grads, exp_grad, out.radii.detach(), logs, stats
 
 
 def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: int):
@@ -204,7 +254,10 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
     ``train_step(scene, adam, step, camera, image, background, exp_mat=None,
     depth_target=None)`` -> ``(scene, adam, logs)``, plus ``exp_grad`` (the
     gradient of ``exp_mat``, for ``exposure_update``) when ``exp_mat`` is
-    given. Logs hold 0-dim tensors under the JAX step's keys."""
+    given. Logs hold 0-dim tensors under the JAX step's keys. With
+    ``cfg.batch_views`` B > 1 the inputs are stacks of B views
+    (``step_gradients``) and the stats reduce over the views as the JAX
+    batched step's do: dropped pairs summed, pairs and overflow maxed."""
     schedules = make_lr_schedules(cfg.optimizer, spatial_scale)
     resolve_rasterizer(cfg.rasterizer)  # refuse an unknown name up front
 
@@ -213,7 +266,9 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
         param_grads, screen_grads, exp_grad, radii, logs, stats = step_gradients(
             cfg, scene, camera, width, height, image, background, exp_mat,
             depth_target)
-        visible = (radii > 0) if cfg.sparse_adam else None
+        visible = None
+        if cfg.sparse_adam:  # a splat any view saw
+            visible = (radii > 0) if radii.dim() == 1 else torch.any(radii > 0, dim=0)
         new_params, adam = adam_update(scene.params, param_grads, adam, schedules,
                                        cfg.optimizer, step, visible=visible)
         scene = dataclasses.replace(scene, params=new_params)
@@ -274,8 +329,10 @@ class Trainer:
     """Host-side orchestration: cadences, logging, eval, checkpoints.
 
     The scene's device is the Trainer's: every view, the noise generator and
-    the checkpoints' tensors live there. ``mesh`` and ``batch_views > 1``
-    are not ported yet and raise.
+    the checkpoints' tensors live there. With ``batch_views`` B > 1 each step
+    draws B views from the sampler and stacks their cameras, images,
+    backgrounds, depth maps and exposure rows. ``mesh`` is not ported yet
+    and raises.
     """
 
     def __init__(
@@ -292,9 +349,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError("Trainer(mesh=...): the multi-device step is not "
                                       "ported yet (ROADMAP.md queue A, item 9)")
-        if cfg.batch_views != 1:
-            raise NotImplementedError(f"batch_views={cfg.batch_views}: only one view per "
-                                      "step is ported (ROADMAP.md queue A, item 7)")
         self.cfg = cfg
         self.scene = scene
         self.device = scene.device
@@ -320,6 +374,9 @@ class Trainer:
         self._sampler = ViewSampler(len(self.train_views), cfg.seed)
         self._view_cache: dict = {}
         self._depth_cache: dict = {}
+        # view ids on the device: a batch's id tensor is cut from it, so
+        # stepping builds no tensor from host data
+        self._view_ids = torch.arange(len(self.train_views), device=self.device)
         self.history: list = []
         self._shrink_streak = 0
         self._nan_rollbacks = 0
@@ -436,6 +493,23 @@ class Trainer:
             cached = self._depth_cache[idx] = self._upload(depth)
         return cached
 
+    def _step_inputs(self):
+        """(view index, camera, image, background, depth target or None) for
+        one step: one view, or with ``batch_views`` B > 1 the sampler's next
+        B draws stacked along a leading axis, their ids as a (B,) device
+        tensor."""
+        b = self.cfg.batch_views
+        depth = self.cfg.w_depth > 0
+        if b == 1:
+            idx = self._sampler.next_index()
+            return (idx,) + self._device_view(idx) + (
+                self._device_depth(idx) if depth else None,)
+        idxs = [self._sampler.next_index() for _ in range(b)]
+        cams, imgs, bgs = zip(*(self._device_view(i) for i in idxs))
+        ids = torch.cat([self._view_ids[i:i + 1] for i in idxs])
+        depths = torch.stack([self._device_depth(i) for i in idxs]) if depth else None
+        return ids, stack_cameras(cams), torch.stack(imgs), torch.stack(bgs), depths
+
     def densify_noise(self) -> torch.Tensor:
         """The split displacement's standard-normal draw, (capacity, 3)."""
         return torch.randn((self.scene.capacity, 3), generator=self.generator,
@@ -480,11 +554,8 @@ class Trainer:
                 # reset on the same step the PSNR reads low by construction
                 self.validate()
             self.maybe_densify()
-            view_idx = self._sampler.next_index()
-            cam, img, bg = self._device_view(view_idx)
-            extra = {}
-            if self.cfg.w_depth > 0:
-                extra["depth_target"] = self._device_depth(view_idx)
+            view_idx, cam, img, bg, depth = self._step_inputs()
+            extra = {} if depth is None else {"depth_target": depth}
             if self.exposure is not None:
                 self.scene, self.adam, logs, exp_grad = self._train_step(
                     self.scene, self.adam, self.step, cam, img, bg,

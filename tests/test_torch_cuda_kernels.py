@@ -515,3 +515,148 @@ def test_oracle_and_tiled_routes_match_cuda_route(scene):
         assert float((a - b).abs().max()) <= 1e-4 * scale, k
     a, b = out["xla"][1], out["cuda"][1]
     assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# ---- the view axis (the view-batched train step) --------------------------
+
+def _view_stack(scene):
+    """Three views whose pair streams differ: the bench camera, one that
+    sees no splat (it looks away), and a closer one zoomed in, with
+    thousands of pairs fewer than the bench view; preprocessed as one stack
+    and one at a time."""
+    from gaussian_splatting_lightning_tpu_torch.core.camera import make_camera, stack_cameras
+
+    cams = [make_camera(np.concatenate([np.eye(3), [[0.0], [0.0], [z]]], 1), W * f, W * f,
+                        W, H) for z, f in ((4.0, 0.7), (-4.0, 0.7), (3.0, 1.4))]
+    args = (scene.params.xyz, scene.get_opacity(), scene.get_scales(),
+            scene.get_rotation(), scene.get_features())
+    kw = dict(alive=scene.alive)
+    single = [preprocess(*args, c, W, H, scene.active_sh_degree, scene.max_sh_degree, **kw)
+              for c in cams]
+    stacked = preprocess(*args, stack_cameras(cams), W, H, scene.active_sh_degree,
+                         scene.max_sh_degree, **kw)
+    return stacked, single
+
+
+@pytest.mark.parametrize("block", [16, 32])
+def test_batched_kernels_match_plain_per_view(scene, block):
+    """K1-K4 with B = 3 views in one launch each against the plain versions
+    view by view: K1 and the bins identical, K2 within 1e-4, K3 within 1e-4
+    and K4 within 1e-5 of each column's largest |plain|, the same zero rows,
+    and K2-K4 the same bits on a second run. One view has no pairs; under
+    the budget chosen, the bench view drops pairs and the others do not."""
+    stacked, single = _view_stack(scene)
+    gx, gy = binning.grid_shape(W, H, block, block)
+    full = [int(binning.build_sorted_bins(p, gx, gy, MAX_PAIRS, block=block).num_pairs)
+            for p in single]
+    assert full[1] == 0 and full[0] > full[2] + 512 > 512
+    # a budget between the bench view's pairs and the close view's
+    budget = -(-((full[0] + full[2]) // 2) // 128) * 128
+    counts = dict(_build.launches)
+    bins = binning.build_sorted_bins(stacked, gx, gy, budget, block=block)
+    assert _build.launches["expand_pairs"] == counts["expand_pairs"] + 1
+    plain = binning.build_sorted_bins(stacked, gx, gy, budget, block=block, plain=True)
+    for name, a, b in zip(bins._fields, bins, plain):
+        assert torch.equal(a, b), name
+    assert bins.num_dropped.tolist() == [full[0] - budget, 0, 0]
+    assert bins.num_pairs.tolist() == full
+    for v, p in enumerate(single):  # the stack's view v is the single view's bins
+        one = binning.build_sorted_bins(p, gx, gy, budget, block=block)
+        for name, a, b in zip(bins._fields, bins, one):
+            assert torch.equal(a[v], b), (v, name)
+
+    gfeat = rasterize.feature_table(stacked, W, H, block)
+    bg = torch.tensor([[0.1, 0.2, 0.3], [0.5, 0.5, 0.5], [0.0, 0.3, 1.0]], device="cuda")
+    fwd = (gfeat, bins.gauss_s, bins.tile_start, bins.tile_count, bg, gx, block)
+    counts = dict(_build.launches)
+    out = rasterize.composite_fwd(*fwd)
+    assert _build.launches["composite_fwd"] == counts["composite_fwd"] + 1
+    again = rasterize.composite_fwd(*fwd)
+    out_p = rasterize.composite_fwd_plain(*fwd)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    grad_out = torch.randn(out.shape, device="cuda", generator=gen)
+    bwd = (gfeat, bins.gauss_s, bins.slot_s, bins.tile_start, bins.tile_count, out,
+           grad_out, gx, block, budget)
+    dk = rasterize.composite_bwd(*bwd)
+    assert _build.launches["composite_bwd"] == counts["composite_bwd"] + 1
+    dk2 = rasterize.composite_bwd(*bwd)
+    dp = rasterize.composite_bwd_plain(*bwd)
+    seg = (dk, bins.offsets, bins.ntiles, bins.order)
+    sk = rasterize.segment_sum(*seg)
+    assert _build.launches["segment_sum"] == counts["segment_sum"] + 1
+    sk2 = rasterize.segment_sum(*seg)
+    sp = rasterize.segment_sum_plain(*seg)
+    torch.cuda.synchronize()
+    assert out.shape == (3, gx * gy, rasterize.NOUT, block * block)
+    assert dk.shape == (3, budget, rasterize.NGRAD)
+    assert sk.shape == (3, stacked.depth.shape[1], rasterize.NFEAT)
+    assert torch.equal(out, again) and torch.equal(dk, dk2) and torch.equal(sk, sk2)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(dk).all())
+    assert float((out - out_p).abs().max()) <= K2_TOL
+    # the empty view composites the background alone and has no gradient rows
+    assert torch.equal(out[1, :, :3], bg[1][None, :, None].expand(gx * gy, 3, block * block))
+    assert not dk[1].any() and not sk[1].any()
+    for v in (0, 2):
+        assert col_err(dk[v], dp[v]) <= 1e-4
+        assert torch.equal(dk[v].abs().sum(1) == 0, dp[v].abs().sum(1) == 0)
+        ng = rasterize.NGRAD
+        assert col_err(sk[v, :, :ng], sp[v, :, :ng]) <= 1e-5
+        assert torch.equal(sk[v].abs().sum(1) == 0, sp[v].abs().sum(1) == 0)
+
+
+@pytest.mark.parametrize("block", [16, 32])
+def test_batched_entries_at_one_view_give_the_single_view_bits(prep, block):
+    """A stack of one view through K1-K4 gives the bits of the single-view
+    entry (the same kernel code on grid row or column 0)."""
+    stack1 = type(prep)(*(getattr(prep, f)[None] for f in prep.__dataclass_fields__))
+    gx, gy = binning.grid_shape(W, H, block, block)
+    bins = binning.build_sorted_bins(prep, gx, gy, MAX_PAIRS, block=block)
+    bins1 = binning.build_sorted_bins(stack1, gx, gy, MAX_PAIRS, block=block)
+    for name, a, b in zip(bins._fields, bins, bins1):
+        assert torch.equal(a, b[0]), name
+    gfeat = rasterize.feature_table(prep, W, H, block)
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    out = rasterize.composite_fwd(gfeat, bins.gauss_s, bins.tile_start, bins.tile_count,
+                                  bg, gx, block)
+    out1 = rasterize.composite_fwd(gfeat[None], bins1.gauss_s, bins1.tile_start,
+                                   bins1.tile_count, bg[None], gx, block)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    grad_out = torch.randn(out.shape, device="cuda", generator=gen)
+    dk = rasterize.composite_bwd(gfeat, bins.gauss_s, bins.slot_s, bins.tile_start,
+                                 bins.tile_count, out, grad_out, gx, block, MAX_PAIRS)
+    dk1 = rasterize.composite_bwd(gfeat[None], bins1.gauss_s, bins1.slot_s,
+                                  bins1.tile_start, bins1.tile_count, out1,
+                                  grad_out[None], gx, block, MAX_PAIRS)
+    sk = rasterize.segment_sum(dk, bins.offsets, bins.ntiles, bins.order)
+    sk1 = rasterize.segment_sum(dk1, bins1.offsets, bins1.ntiles, bins1.order)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out1[0]) and torch.equal(dk, dk1[0]) and torch.equal(sk, sk1[0])
+
+
+def test_batched_expand_pairs_on_uneven_runs():
+    """K1 with three synthetic layouts of different pair totals stacked
+    under one budget of 4096 slots a view: 17,801 pairs (past the budget),
+    1,500 (inside a 1024-slot run) and none, against the plain version."""
+    cases = [expand_case(n) for n in ("big_rect", "total_in_a_run", "total_zero")]
+    n = max(c[0].shape[0] for c in cases)
+    max_pairs = 4096
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    views = []
+    for *arrays, _ in cases:
+        offsets, order, rows, p_pix, total = arrays
+        pad = n - offsets.shape[0]
+        # padding splats own no slot: offsets at the total, rank past the rest
+        offsets = np.concatenate([offsets, np.full(pad, total, offsets.dtype)])
+        order = np.concatenate([order, np.arange(order.shape[0], n, dtype=order.dtype)])
+        rows = np.concatenate([rows, np.zeros((pad, rows.shape[1]), rows.dtype)])
+        p_pix = np.concatenate([p_pix, np.zeros((pad, 2), p_pix.dtype)])
+        views.append((offsets, order, rows, p_pix, total))
+    inp = binning.ExpandInputs(*(torch.from_numpy(np.stack(x)).cuda() for x in zip(*views)))
+    key, gauss = binning.expand_pairs(inp, max_pairs, GX, GX * GY, 0, 32)
+    key_p, gauss_p = binning.expand_pairs_plain(inp, max_pairs, GX, GX * GY, 0, 32)
+    torch.cuda.synchronize()
+    assert key.shape == (3, max_pairs)
+    assert torch.equal(key, key_p) and torch.equal(gauss, gauss_p)
+    assert inp.total.tolist() == [17801, 1500, 0]
+    assert bool((key[2] == GX * GY).all()) and not gauss[2].any()

@@ -40,7 +40,7 @@ def test_scan_covers_the_port():
                    "ops/rasterize_reference.py", "ops/rasterize_tiled.py",
                    "scripts/make_synthetic_scene.py", "scripts/eval.py",
                    "scripts/render_path.py", "scripts/export_splat.py", "scripts/view.py",
-                   "scripts/profile_render.py", "viewer/__init__.py"):
+                   "scripts/profile_render.py", "viewer/__init__.py", "ops/lpips.py"):
         assert f"{PORT}/{module}" in names, module
     assert len(names) >= 30
     # the viewer page is the port's own file, not a path into the JAX package

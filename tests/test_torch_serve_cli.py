@@ -10,7 +10,8 @@ on the CPU (``--device cpu``) at tiny sizes.
   through its XLA route), and its GIF decodes (``imageio``) to the frames
   within the palette's quantisation.
 - The eval CLI's PSNR within 1e-3 dB and SSIM within 1e-4 of the JAX
-  CLI's, with and without ``--use-oracle``; ``--lpips-weights`` is refused.
+  CLI's, with and without ``--use-oracle``; with ``--lpips-weights`` its
+  LPIPS rows within 1e-5 relative of the JAX CLI's.
 - The generator: the COLMAP files byte-identical to the JAX generator's,
   every pixel within one 8-bit level and at least 99.9% equal for
   ``clusters``; the ``textured`` and ``hard`` GT arrays identical.
@@ -181,11 +182,36 @@ def test_eval_cli_matches_jax_cli(scenes, tmp_path, monkeypatch, oracle):
         assert abs(a["l1"] - b["l1"]) <= 1e-4, (a, b)
 
 
-def test_eval_cli_refuses_lpips(scenes):
+def test_eval_cli_refuses_lpips(scenes, tmp_path, monkeypatch, capsys):
+    """``--lpips-weights`` (no longer refused): the port CLI's LPIPS rows,
+    mean and printed lines against the JAX CLI's on seeded random weights
+    in the export layout; LPIPS within 1e-5 relative (``ops/lpips.py``'s
+    bound; the renders differ by less than the PSNR bound above)."""
+    from tests.test_metrics import _random_weights
+
     root, ckpt = scenes
-    with pytest.raises(SystemExit):
-        port_eval.main([str(ckpt), "--colmap", str(root / "jax"), "--lpips-weights",
-                        "w.npz", "--device", "cpu"])
+    scene = root / "jax"
+    weights = tmp_path / "lpips_vgg16.npz"
+    np.savez(weights, **_random_weights(np.random.default_rng(3)))
+    common = [str(ckpt), "--colmap", str(scene), "--image-folder", str(scene / "images"),
+              "--holdout-every", "2", "--lpips-weights", str(weights)]
+    got = port_eval.main(common + ["--device", "cpu"])
+    port_lines = capsys.readouterr().out.splitlines()
+    from scripts import eval as jax_eval
+
+    run_jax_cli(jax_eval, common + ["--out", tmp_path / "jax.json"], monkeypatch)
+    jax_lines = capsys.readouterr().out.splitlines()
+    want = json.loads((tmp_path / "jax.json").read_text())
+    assert set(got["mean"]) == set(want["mean"]) == {"psnr", "ssim", "l1", "lpips"}
+    assert len(got["views"]) == len(want["views"]) == 2
+    for a, b in zip(got["views"] + [got["mean"]], want["views"] + [want["mean"]]):
+        assert b["lpips"] > 0
+        assert abs(a["lpips"] - b["lpips"]) <= 1e-5 * b["lpips"], (a, b)
+    assert all(v["lpips_ms"] > 0 for v in got["views"])
+    # a printed lpips= on each view's line and the mean's, as the JAX CLI's
+    ours = [x.split(":")[0] for x in port_lines if " lpips=" in x]
+    theirs = [x.split(":")[0] for x in jax_lines if " lpips=" in x]
+    assert ours == theirs and len(ours) == 3
 
 
 # ---- the generator --------------------------------------------------------

@@ -178,3 +178,37 @@ def test_train_cli_matches_jax_cli(scene_dir, tmp_path, monkeypatch, capsys):
     assert f"--resume auto: run {port_run.name}, step 30" in out
     assert resumed.step == 30
     assert torch.equal(resumed.scene.params.xyz, trainer.scene.params.xyz)
+
+
+def test_train_cli_batched_matches_jax_cli(scene_dir, tmp_path, monkeypatch):
+    """``--set train.batch_views=2`` (with exposure): the logs of both CLIs
+    step for step, within the bounds of ``test_train_cli_matches_jax_cli``."""
+    cfg = tmp_path / "cfg.yaml"
+    write_config(cfg, scene_dir, tmp_path / "runs")
+    sets = COMMON + ["--set", "train.batch_views=2", "--set", "train.use_exposure=true"]
+    monkeypatch.setattr(ttrainer.Trainer, "densify_noise", jax_noise)
+    trainer = port_cli.main(["-c", str(cfg), "--out-dir", str(tmp_path / "port"),
+                             "--device", "cpu"] + sets)
+    monkeypatch.setattr(sys, "argv", ["train", "-c", str(cfg), "--out-dir",
+                                      str(tmp_path / "jax")] + sets)
+    from scripts.train import main as jax_cli
+
+    jax_cli()
+    (port_run,) = (tmp_path / "port" / "cli").iterdir()
+    (jax_run,) = (tmp_path / "jax" / "cli").iterdir()
+    pl, jl = logs_of(port_run, "train_log.jsonl"), logs_of(jax_run, "train_log.jsonl")
+    assert [r["step"] for r in pl] == [r["step"] for r in jl] == list(range(0, 30, 5))
+    assert [r["n_gaussians"] for r in pl] == [r["n_gaussians"] for r in jl]
+    assert pl[-1]["n_gaussians"] > pl[0]["n_gaussians"]
+    for a, b in zip(pl, jl):
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * b["loss"], a["step"]
+        assert abs(a["psnr"] - b["psnr"]) <= 1e-4, a["step"]
+    pv, jv = logs_of(port_run, "valid_log.jsonl"), logs_of(jax_run, "valid_log.jsonl")
+    assert [r["step"] for r in pv] == [r["step"] for r in jv] == [15, 30]
+    for a, b in zip(pv, jv):
+        assert abs(a["valid_psnr"] - b["valid_psnr"]) <= 1e-4
+    assert trainer.cfg.batch_views == 2
+    assert json.loads((port_run / "config.json").read_text())["train"]["batch_views"] == 2
+    # 30 steps of two draws from three train views: every exposure row moved
+    moved = (trainer.exposure.params - torch.eye(3, 4)).abs().amax(dim=(1, 2))
+    assert bool((moved > 0).all())

@@ -193,7 +193,7 @@ COUPLED_DENSIFY = dict(densify_since=10, densify_interval=10, densify_until=45,
                        sh_degree_step_interval=15)
 
 
-def coupled_run(steps=60):
+def coupled_run(steps=60, batch_views=1):
     w, h = 64, 48
     xyz, views = gt_views(n_views=5, w=w, h=h, n_gt=60, seed=3)
     xyz0 = xyz + np.random.default_rng(4).normal(size=xyz.shape).astype(np.float32) * 0.05
@@ -202,7 +202,8 @@ def coupled_run(steps=60):
     js = jax_from_points(xyz0, np.full((len(xyz0), 3), 0.5, np.float32), 256, 3)
     ts = port_scene(js)
     common = dict(num_iters=steps, capacity=256, log_interval=5, overflow_check_interval=5,
-                  valid_interval=25, checkpoint_interval=10_000, seed=7)
+                  valid_interval=25, checkpoint_interval=10_000, seed=7,
+                  batch_views=batch_views)
     jcfg = jtrainer.TrainConfig(
         rasterizer="pallas_interpret", densify=jdensify.DensifyConfig(**COUPLED_DENSIFY),
         tiling=JaxTiling(max_pairs=1 << 14, block=32, pair_grad_bf16=False),
@@ -267,12 +268,33 @@ def test_coupled_loop_matches_jax():
 
 # ---- port-side counterparts of the JAX loop tests -------------------------
 
+def test_coupled_batched_loop_matches_jax():
+    """``batch_views=2``: 40 steps of two views each, densify events at 20
+    and 30, an SH step, a validation; the bounds of
+    ``test_coupled_loop_matches_jax``."""
+    jtr, ttr, events, valids = coupled_run(steps=40, batch_views=2)
+    jh, th = jtr.history, ttr.history
+    assert [h["step"] for h in th] == [h["step"] for h in jh] == list(range(0, 40, 5))
+    rel = [abs(a["loss"] - b["loss"]) / a["loss"] for a, b in zip(jh, th)]
+    assert max(rel) <= 1e-5, rel
+    assert [h["n_gaussians"] for h in th] == [h["n_gaussians"] for h in jh]
+    assert len(events["port"]) == len(events["jax"]) == 2  # steps 20, 30
+    assert events["port"] == events["jax"]
+    assert sum(e["n_cloned"] + e["n_split"] for e in events["port"]) > 0
+    assert len(valids["port"]) == len(valids["jax"]) == 1  # step 25
+    assert abs(valids["jax"][0]["valid_psnr"] - valids["port"][0]["valid_psnr"]) <= 1e-4
+    np.testing.assert_array_equal(np.asarray(jtr.scene.alive), ttr.scene.alive.numpy())
+    np.testing.assert_array_equal(np.asarray(jtr.scene.grad_count),
+                                  ttr.scene.grad_count.numpy())
+    # two views per step: 80 draws of the sampler on both sides
+    assert ttr._sampler.state() == jtr._sampler.state()
+    assert th[-1]["loss"] < th[0]["loss"]
+
+
 def test_trainer_refuses_unported_modes():
     xyz, views = gt_views(n_views=2)
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(small_cfg(), init_scene(xyz), 4.0, views, mesh=object(), **QUIET)
-    with pytest.raises(NotImplementedError, match="batch_views"):
-        Trainer(small_cfg(batch_views=2), init_scene(xyz), 4.0, views, **QUIET)
 
 
 def test_tile_overflow_branch_raises():

@@ -76,6 +76,27 @@ Phases (any failure exits non-zero):
      (1e-4 of each column's maximum), its screen-space gradients to the
      stacked single-view ones. Launches per step at B = 4 stay within 1.3x
      of B = 1's. A ``phase8:`` line holds the numbers.
+  9. the mesh (``parallel/``) at full width. (a) A 1x1 mesh on NCCL in this
+     process: the sharded step on phase 5's bench view against phase 5's
+     step (loss within 1e-5, Adam's first moments, (1 - beta1) times the
+     gradients, within 1e-4 of each column's largest |value|), both timed
+     (``mesh_1x1:``). (b) Four ranks sharing the card over gloo under
+     ``torch.distributed.run`` (this script with ``--mesh-ranks``), meshes
+     (1, 4) and (2, 2) on phase 8's first two views: each rank's sharded
+     step against the one-process step on the same global batch (the same
+     limits), 0 pairs dropped in every band (each band's ``num_pairs``
+     printed), K1-K5 launched on every rank, on the (1, 4) mesh's bands 1
+     and 3 (``tile_y_offset`` 9 and 27 at 1080p) every launch of the step
+     held to its plain version on the same inputs (K1 identical, K2 within
+     1e-4, K3 within 1e-4 and K4 within 1e-5 of each column's largest
+     |plain|, K5 bit-identical both ways; ``band_kernels``), ``sharded_render``
+     within 1e-4 of ``render_scene``, the wall per step (``mesh_rank`` lines, then
+     ``mesh_ranks:``; four ranks sharing one card: not a scaling number).
+     (c) After phase 7, the train CLI under torchrun with ``mesh_view=2,
+     mesh_tile=2`` at phase 6's operating point cut to 60 steps (one
+     densify event at threshold 0) against the one-process CLI at
+     ``batch_views=2``: logged losses within 2e-4, the same alive counts
+     (``mesh_cli_row:``).
 
 Phase 6 also runs the train CLI with ``train.batch_views=4`` and exposure
 for BATCHED_LOOP_STEPS steps across one densify event (a
@@ -87,8 +108,9 @@ Phases 3 and 6 keep their PLYs and scene in one temporary directory for
 phase 7. The card's name and power limit come two lines before the last, the
 kernels' JSON record (``max_abs_err`` is the largest |kernel - plain| over
 the kernel's outputs; K1's outputs are integers; ``serve_launches`` holds
-each phase-7 CLI's launches, ``batched_launches`` phase 8's per B) on the
-line before the last, and
+each phase-7 CLI's launches, ``batched_launches`` phase 8's per B,
+``mesh_launches`` phase 9's on the 1x1 mesh and on each rank of the (1, 4)
+and (2, 2) meshes) on the line before the last, and
 ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 """
 
@@ -1838,7 +1860,441 @@ def phase8(scene, budget):
     return launches
 
 
+# phase 9: the mesh (parallel/) at full width. One card cannot hold a
+# multi-card mesh: (a) a 1x1 mesh on NCCL in this process, (b) four ranks
+# sharing the card over gloo, (c) the train CLI on four such ranks
+MESH_LOSS_TOL = 1e-5  # the sharded step's loss against the one-process step's
+MESH_GRAD_TOL = 1e-4  # its gradients (Adam's first moments after step 0)
+MESH_RENDER_TOL = 1e-4  # sharded_render against render_scene
+MESH_CLI_TOL = 2e-4  # the CLI's logged losses, mesh against one process
+MESH_SHAPES = ((1, 4), (2, 2))
+MESH_TIMED_STEPS = 2
+MESH_CLI_SETS = {
+    "train.num_iters": 60, "train.densify.densify_since": 29,
+    "train.densify.densify_interval": 30, "train.densify.densify_until": 31,
+    "train.densify.densify_grad_threshold": 0.0, "train.log_interval": 10,
+    "train.overflow_check_interval": 10, "train.checkpoint_interval": 60,
+    "train.valid_interval": 1000,
+}
+SHARING = "four ranks sharing one card over gloo: not a scaling number"
+# the (1, 4) bands whose launches are held to the plain versions on the
+# same inputs: a middle band and the band across the image's bottom edge
+MESH_CHECK_TILES = (1, 3)
+# each wrapper (by its _build name): its module, its name, its plain version's
+KERNEL_SITES = {
+    "expand_pairs": ("binning", "expand_pairs", "expand_pairs_plain"),
+    "composite_fwd": ("rasterize", "composite_fwd", "composite_fwd_plain"),
+    "composite_bwd": ("rasterize", "composite_bwd", "composite_bwd_plain"),
+    "segment_sum": ("rasterize", "segment_sum", "segment_sum_plain"),
+    "blur": ("ssim", "blur_valid", "blur_valid_plain"),
+}
+BAND_TOL = {"expand_pairs": 0, "composite_fwd": K2_TOL, "composite_bwd": K3_TOL,
+            "segment_sum": K4_TOL, "blur": 0}
+
+
+@contextlib.contextmanager
+def record_kernel_calls():
+    """Record every K1-K5 wrapper call's arguments and result while the
+    block runs; the wrappers launch and count as they do without it."""
+    import importlib
+
+    calls = {name: [] for name in KERNEL_SITES}
+    patched = []
+    for name, (mod_name, fn_name, _) in KERNEL_SITES.items():
+        mod = importlib.import_module(f"{PKG}.ops.{mod_name}")
+        orig = getattr(mod, fn_name)
+
+        def recorder(*args, _orig=orig, _calls=calls[name], **kw):
+            out = _orig(*args, **kw)
+            _calls.append((args, kw, out))
+            return out
+
+        setattr(mod, fn_name, recorder)
+        patched.append((mod, fn_name, orig))
+    try:
+        yield calls
+    finally:
+        for mod, fn_name, orig in patched:
+            setattr(mod, fn_name, orig)
+
+
+def band_kernel_errs(calls) -> dict:
+    """Each recorded launch against its plain version on the same inputs:
+    K1's keys and ids and K5's output as the largest |difference| (held to
+    0), K2's largest |difference|, K3's and K4's each column's over its
+    largest |plain|, view by view (K3's zero rows must match too)."""
+    import importlib
+
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.ops.rasterize import NGRAD
+
+    def per_view(x):
+        return list(x) if x.dim() == 3 else [x]
+
+    errs = {}
+    for name, (mod_name, _, plain_name) in KERNEL_SITES.items():
+        plain = getattr(importlib.import_module(f"{PKG}.ops.{mod_name}"), plain_name)
+        worst = 0.0
+        for args, kw, got in calls[name]:
+            with torch.no_grad():
+                want = plain(*args, **kw)
+            if name == "expand_pairs":
+                err = max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+                worst = max(worst, err)
+                continue
+            got = got.detach()  # a launch's output joins the autograd graph after it
+            if name in ("composite_fwd", "blur"):
+                err = float((got - want).abs().max())
+            elif name == "composite_bwd":
+                err = max(col_err(g, w) for g, w in zip(per_view(got), per_view(want)))
+                if not torch.equal(got.abs().sum(-1) == 0, want.abs().sum(-1) == 0):
+                    err = math.inf  # other zero rows than the plain version's
+            else:
+                err = max(col_err(g[:, :NGRAD], w[:, :NGRAD])
+                          for g, w in zip(per_view(got), per_view(want)))
+            worst = max(worst, err)
+        errs[name] = {"calls": len(calls[name]), "err": worst}
+    return errs
+
+
+def moment_errs(got, want) -> dict:
+    """``col_err`` of each Adam first-moment group ((1 - beta1) times the
+    step's gradient after step 0)."""
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
+
+    cap = want.xyz.shape[0]
+    return {k: col_err(getattr(got, k).reshape(cap, -1), getattr(want, k).reshape(cap, -1))
+            for k in PARAM_NAMES}
+
+
+def run_torchrun(args, timeout: int):
+    """``python -m torch.distributed.run --standalone`` with ``args``, in its
+    own process group so that a timeout stops every rank; returns (rc,
+    output)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone"] + args
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, process_group=0)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"phase 9: torchrun {args[:4]} ran past {timeout} s:\n{out[-3000:]}")
+    return proc.returncode, out
+
+
+def phase9_nccl(scene, budget):
+    """(a) A 1x1 mesh on NCCL: the sharded step against phase 5's step on
+    the bench view, and both timed."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
+    from gaussian_splatting_lightning_tpu_torch.parallel.shard import (
+        make_sharded_train_step,
+        shard_adam,
+    )
+    from gaussian_splatting_lightning_tpu_torch.training import trainer
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
+
+    w, h = 1920, 1080
+    cam = interop.camera(w, h)
+    target = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(3, h, w)).astype(np.float32)).cuda()
+    bg = torch.zeros(3, device="cuda")
+    cfg = trainer.TrainConfig(tiling=TilingConfig(max_pairs=budget, block=32),
+                              capacity=scene.capacity)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    info = init_distributed("cuda", rank=0, world_size=1, init_method=f"tcp://localhost:{port}")
+    try:
+        mesh = make_mesh(1, 1, info=info)
+        if mesh.backend != "nccl":
+            fail(f"phase 9: a 1x1 mesh on one card chose {mesh.backend}")
+        sharded = make_sharded_train_step(cfg, 1.0, w, h, mesh)
+        single = trainer.make_train_step(cfg, 1.0, w, h)
+        runs = {
+            "single": lambda s, a, i: single(s, a, i, cam, target, bg),
+            "mesh": lambda s, a, i: sharded(s, a, i, stack_cameras([cam]), target[None],
+                                            bg[None]),
+        }
+        first, walls, launches = {}, {}, {}
+        for name, run in runs.items():
+            adam = init_adam(scene.params)
+            if name == "mesh" and sharded.sharded_adam:
+                adam = shard_adam(adam, mesh)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            state = run(scene, adam, 0)
+            torch.cuda.synchronize()
+            launches[name] = dict(_build.launches)
+            first[name] = (float(state[2]["loss"]), state[1].mu,
+                           int(state[2]["num_dropped_pairs"]))
+            walls[name] = []
+            for i in range(1, 6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = run(state[0], state[1], i)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+            del state
+        loss_err = abs(first["mesh"][0] - first["single"][0]) / abs(first["single"][0])
+        grad_err = moment_errs(first["mesh"][1], first["single"][1])
+        dropped = first["mesh"][2] + first["single"][2]
+    finally:
+        dist.destroy_process_group()
+    row = {"backend": mesh.backend, "loss": first["mesh"][0], "loss_rel_err": loss_err,
+           "grad_rel_err": grad_err, "dropped": dropped,
+           "step_wall_ms_median": {k: sorted(v)[len(v) // 2] for k, v in walls.items()},
+           "step_wall_ms": walls, "launches": launches["mesh"]}
+    print("mesh_1x1: " + json.dumps(row), flush=True)
+    if not loss_err <= MESH_LOSS_TOL or dropped:
+        fail(f"phase 9 (a): loss error {loss_err}, {dropped} pairs dropped")
+    bad = {k: v for k, v in grad_err.items() if not v <= MESH_GRAD_TOL}
+    if bad:
+        fail(f"phase 9 (a): the 1x1 mesh step's gradients differ: {bad}")
+    if any(launches["mesh"][k] < 1 for k in _build.SOURCES):
+        fail(f"phase 9 (a): a kernel was not launched: {launches['mesh']}")
+    return launches["mesh"]
+
+
+def mesh_ranks(budget: int, out_path: str) -> int:
+    """(b) One rank under torchrun: the one-process step and render on this
+    rank, then for each mesh shape the sharded step (launch counts set to 0
+    just before it), two timed steps and ``sharded_render``; rank 0 writes
+    every rank's numbers to ``out_path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
+        PARAM_NAMES,
+        GaussianParams,
+    )
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        sharded_render,
+    )
+    from gaussian_splatting_lightning_tpu_torch.parallel.shard import (
+        make_sharded_train_step,
+        shard_adam,
+    )
+    from gaussian_splatting_lightning_tpu_torch.training import trainer
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
+
+    info = init_distributed("cuda")
+    w, h, blk, views = 1920, 1080, 32, 2
+    scene = interop.synthetic_scene(1_000_000, 1_000_000, sh_degree=3, scale=0.008)
+    cams = orbit_cameras(w, h)
+    targets = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(len(cams), 3, h, w)).astype(np.float32))[:views].cuda()
+    cams = cams[:views]
+    bgs = torch.zeros(views, 3, device="cuda")
+    whole_tiling = TilingConfig(max_pairs=budget, block=blk)
+    one = trainer.make_train_step(trainer.TrainConfig(tiling=whole_tiling, batch_views=views),
+                                  1.0, w, h)
+    _, adam1, logs1 = one(scene, init_adam(scene.params), 0, stack_cameras(cams), targets, bgs)
+    ref_loss, ref_mu = float(logs1["loss"]), adam1.mu
+    with torch.no_grad():
+        ref_img, ref_stats = trainer.render_scene(scene, cams[0], w, h, bgs[0], whole_tiling)
+    rows = {"rank": info.rank, "backend": info.backend,
+            "ref_dropped": int(logs1["num_dropped_pairs"]) + int(ref_stats["num_dropped_pairs"])}
+    del adam1
+    for v, t in MESH_SHAPES:
+        mesh = make_mesh(v, t, info=info)
+        b = views // v
+        local = slice(mesh.axis_index("view") * b, (mesh.axis_index("view") + 1) * b)
+        # every band's budget is the whole image's: no band may drop pairs
+        cfg = trainer.TrainConfig(tiling=TilingConfig(max_pairs=budget * t, block=blk),
+                                  capacity=scene.capacity, batch_views=b)
+        step = make_sharded_train_step(cfg, 1.0, w, h, mesh)
+        adam = init_adam(scene.params)
+        if step.sharded_adam:
+            adam = shard_adam(adam, mesh)
+        args = (stack_cameras(cams[local]), targets[local], bgs[local])
+        check = (v, t) == (1, 4) and mesh.axis_index("tile") in MESH_CHECK_TILES
+        torch.cuda.synchronize()
+        mesh.barrier()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with record_kernel_calls() if check else contextlib.nullcontext() as calls:
+            state = step(scene, adam, 0, *args)
+            torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.launches)
+        band_kernels = None
+        if check:  # this band's launches against the plain versions
+            k1_args = calls["expand_pairs"][0][0] if calls["expand_pairs"] else (None,) * 5
+            band_kernels = {"tile_y_offset": k1_args[4], "want_offset":
+                            mesh.axis_index("tile") * step.gy_local,
+                            "band_max_pairs": k1_args[1], **band_kernel_errs(calls)}
+            del calls, k1_args
+        mu = state[1].mu
+        if step.sharded_adam:
+            mu = GaussianParams(**{k: mesh.all_gather(getattr(mu, k), "world")
+                                   for k in PARAM_NAMES})
+        grad_err = moment_errs(mu, ref_mu)
+        del mu
+        loss = float(state[2]["loss"])
+        band = {k: [int(x) for x in val] for k, val in step.band_stats.items()}
+        dropped = int(state[2]["num_dropped_pairs"])
+        walls = []
+        for i in range(1, 1 + MESH_TIMED_STEPS):
+            torch.cuda.synchronize()
+            mesh.barrier()
+            t0 = time.perf_counter()
+            state = step(state[0], state[1], i, *args)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        del state
+        image, _, depth = sharded_render(scene, cams[0], w, h, bgs[0], mesh, whole_tiling)
+        rows[f"{v}x{t}"] = {
+            "view": mesh.axis_index("view"), "tile": mesh.axis_index("tile"),
+            "loss": loss, "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+            "grad_rel_err": grad_err, "dropped": dropped, "band_num_pairs": band["num_pairs"],
+            "band_dropped": band["num_dropped_pairs"], "launches": launches,
+            "first_step_ms": first_ms, "step_wall_ms": walls,
+            "render_err": float((image - ref_img.image).abs().max()),
+            "render_depth_err": float((depth - ref_img.depth).abs().max()),
+            "sharded_adam": step.sharded_adam, "band_kernels": band_kernels,
+        }
+        del image, depth
+        torch.cuda.empty_cache()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rows)
+    if info.rank == 0:
+        Path(out_path).write_text(json.dumps(every))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase9_ranks(budget: int, work: Path):
+    """(b) Four ranks sharing the card over gloo, meshes (1, 4) and (2, 2):
+    each rank's sharded step against the one-process step on the same global
+    batch, its bands, its launches and its wall per step."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+
+    torch.cuda.empty_cache()
+    out = work / "mesh_ranks.json"
+    t0 = time.perf_counter()
+    rc, text = run_torchrun(["--nproc-per-node", "4", str(ROOT / "chip_smoke.py"),
+                             "--mesh-ranks", str(budget), str(out)], timeout=400)
+    if rc != 0 or not out.exists():
+        fail(f"phase 9 (b): the ranks exited {rc}:\n{text[-12000:]}")
+    ranks = json.loads(out.read_text())
+    summary = {"note": SHARING, "backend": ranks[0]["backend"],
+               "launch_s": time.perf_counter() - t0}
+    launches = {}
+    for shape in (f"{v}x{t}" for v, t in MESH_SHAPES):
+        rows = [r[shape] for r in ranks]
+        for r in ranks:
+            print(f"mesh_rank {shape}: " + json.dumps(dict(r[shape], rank=r["rank"])),
+                  flush=True)
+        launches[shape] = [r["launches"] for r in rows]
+        bad = [r["rank"] for r in ranks if not (
+            r[shape]["loss_rel_err"] <= MESH_LOSS_TOL and r[shape]["dropped"] == 0
+            and not any(r[shape]["band_dropped"])
+            and all(e <= MESH_GRAD_TOL for e in r[shape]["grad_rel_err"].values())
+            and r[shape]["render_err"] <= MESH_RENDER_TOL
+            and r[shape]["render_depth_err"] <= MESH_RENDER_TOL
+            and all(r[shape]["launches"][k] >= 1 for k in _build.SOURCES))]
+        if bad or any(r["ref_dropped"] for r in ranks):
+            fail(f"phase 9 (b), mesh {shape}: ranks {bad} fail their checks")
+        checked = {r["rank"]: r[shape]["band_kernels"] for r in ranks
+                   if r[shape]["band_kernels"] is not None}
+        want = len(MESH_CHECK_TILES) if shape == "1x4" else 0
+        bad = {k: c for k, c in checked.items() if not (
+            c["tile_y_offset"] == c["want_offset"] > 0
+            and all(c[n]["calls"] >= (2 if n == "blur" else 1) and c[n]["err"] <= tol
+                    for n, tol in BAND_TOL.items()))}
+        if bad or len(checked) != want:
+            fail(f"phase 9 (b), mesh {shape}: band kernels against plain {checked}")
+        walls = [x for r in rows for x in r["step_wall_ms"]]
+        summary[shape] = {
+            "step_wall_ms_median": sorted(walls)[len(walls) // 2], "step_wall_ms": walls,
+            "loss_rel_err_max": max(r["loss_rel_err"] for r in rows),
+            "grad_rel_err_max": max(max(r["grad_rel_err"].values()) for r in rows),
+            "render_err_max": max(r["render_err"] for r in rows),
+            "band_num_pairs": {f"{r['view']},{r['tile']}": r["band_num_pairs"] for r in rows},
+        }
+        if checked:
+            summary[shape]["band_kernels"] = checked
+            band_errs = {n: max(c[n]["err"] for c in checked.values()) for n in BAND_TOL}
+    print("mesh_ranks: " + json.dumps(summary), flush=True)
+    return launches, band_errs
+
+
+def phase9_cli(work: Path, scene_dir: Path, loop_run: Path):
+    """(c) The train CLI under torchrun with mesh_view=2, mesh_tile=2 at
+    phase 6's operating point cut to 60 steps (one densify event at
+    threshold 0) against the one-process CLI at ``batch_views=2``."""
+    from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
+
+    start = json.loads((loop_run / "config.json").read_text())["train"]["tiling"]["max_pairs"]
+    sets = dict(LOOP_SETS, **MESH_CLI_SETS, **{
+        "data.colmap_path": str(scene_dir), "data.image_folder": str(scene_dir / "images"),
+        # phase 6 starts at half the init estimate and grows; here no budget
+        # may grow or drop, so both runs start at four times the estimate
+        "train.tiling.max_pairs": 8 * start})
+    argv = ["-c", str(ROOT / "configs" / "rehearsal_synthetic.yaml"), "--device", "cuda"]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    t0 = time.perf_counter()
+    rc, text = run_torchrun(
+        ["--nproc-per-node", "4", "-m", f"{PKG}.scripts.train"] + argv
+        + ["--out-dir", str(work / "mesh_cli"), "--set", "mesh_view=2", "--set", "mesh_tile=2"],
+        timeout=400)
+    mesh_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 9 (c): the mesh CLI exited {rc}:\n{text[-12000:]}")
+    print("mesh_cli: " + " | ".join(text.strip().splitlines()[-4:]), flush=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(argv + ["--out-dir", str(work / "one_cli"),
+                               "--set", "train.batch_views=2"])
+    one_s = time.perf_counter() - t0
+    logs = {}
+    for name in ("mesh_cli", "one_cli"):
+        (run,) = (work / name / "gs_tpu").iterdir()
+        logs[name] = [json.loads(x) for x in (run / "train_log.jsonl").read_text().splitlines()]
+    m, o = logs["mesh_cli"], logs["one_cli"]
+    diff = max(abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(m, o))
+    alive = [[int(a["n_gaussians"]), int(b["n_gaussians"])] for a, b in zip(m, o)]
+    ms = [(b["elapsed_s"] - a["elapsed_s"]) * 1e3 / (b["step"] - a["step"])
+          for a, b in zip(m[1:], m[2:])]
+    row = {"note": SHARING, "steps": [r["step"] for r in m], "loss_max_rel_diff": diff,
+           "alive_mesh_vs_one": alive, "dropped": [r["num_dropped_pairs"] for r in m + o],
+           "mesh_ms_per_step_logged": ms, "mesh_run_s": mesh_s, "one_run_s": one_s}
+    print("mesh_cli_row: " + json.dumps(row), flush=True)
+    if [r["step"] for r in m] != [r["step"] for r in o] or len(m) != 6:
+        fail(f"phase 9 (c): logged steps {[r['step'] for r in m]} and {[r['step'] for r in o]}")
+    if not diff <= MESH_CLI_TOL or any(a != b for a, b in alive) or any(row["dropped"]):
+        fail(f"phase 9 (c): losses differ by {diff}, alive {alive}, dropped {row['dropped']}")
+    if not alive[-1][0] > alive[0][0]:
+        fail(f"phase 9 (c): the densify event added no splats: {alive}")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-ranks"]:  # one rank of phase 9 (b), under torchrun
+        return mesh_ranks(int(sys.argv[2]), sys.argv[3])
     try:
         import torch
     except ImportError:
@@ -1865,13 +2321,25 @@ def main() -> int:
         bare_step_syncs, step_kernels = phase5(scene, budget)
         kernels += step_kernels
         batched_launches = phase8(scene, budget)
+        t9 = time.perf_counter()
+        mesh_launches = {"1x1": phase9_nccl(scene, budget)}
         del scene
+        rank_launches, band_errs = phase9_ranks(budget, work)
+        mesh_launches.update(rank_launches)
+        t9 = time.perf_counter() - t9
         loop_launches, run_dir, scene_dir, loop_psnr = phase6(bare_step_syncs, work)
         serve_launches = phase7(work, run_dir, scene_dir, loop_psnr, bench_ply)
+        t9c = time.perf_counter()
+        phase9_cli(work, scene_dir, run_dir)
+        print(f"phase9: {t9 + time.perf_counter() - t9c:.1f} s", flush=True)
     for row in kernels:
         row["loop_launches"] = loop_launches[row["name"]]
         row["serve_launches"] = {cli: n[row["name"]] for cli, n in serve_launches.items()}
         row["batched_launches"] = {str(b): n[row["name"]] for b, n in batched_launches.items()}
+        row["mesh_launches"] = {
+            shape: (n[row["name"]] if isinstance(n, dict) else [r[row["name"]] for r in n])
+            for shape, n in mesh_launches.items()}
+        row["mesh_band_err"] = band_errs[row["name"]]
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

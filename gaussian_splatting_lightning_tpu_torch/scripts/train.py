@@ -14,6 +14,16 @@ Usage:
 The run directory ``<out-dir>/<exp_name>/<run_name>-<time>/`` receives
 ``config.json``, ``train_log.jsonl``, ``valid_log.jsonl``, validation
 triptychs, PLYs and ``ckpt-XXXXXXXX/`` checkpoints.
+
+A mesh (``mesh_view``, ``mesh_tile``) runs one process per rank:
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m gaussian_splatting_lightning_tpu_torch.scripts.train \
+        -c configs/train_gs.yaml --set mesh_view=2 --set mesh_tile=2
+
+Each rank takes ``cuda:{LOCAL_RANK % device_count}`` (or the CPU with
+``--device cpu``), NCCL when every rank has a card of its own, gloo
+otherwise; rank 0 writes the run directory.
 """
 
 from __future__ import annotations
@@ -23,6 +33,9 @@ import dataclasses
 import json
 import time
 from pathlib import Path
+
+LAUNCH = ("python -m torch.distributed.run --nproc-per-node N "
+          "-m gaussian_splatting_lightning_tpu_torch.scripts.train ...")
 
 
 def load_views(d, holdout_every_default: int = 8):
@@ -96,7 +109,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from gaussian_splatting_lightning_tpu_torch.data.nerf import random_init_points
-    from gaussian_splatting_lightning_tpu_torch.device import resolve_device
     from gaussian_splatting_lightning_tpu_torch.models import from_points, save_ply
     from gaussian_splatting_lightning_tpu_torch.training.config import load_config
     from gaussian_splatting_lightning_tpu_torch.training.trainer import (
@@ -104,54 +116,103 @@ def main(argv=None):
         find_resume_checkpoint,
     )
 
-    device = resolve_device(args.device)
     cfg = load_config(args.config, overrides=args.set)
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=args.seed))
     if args.iters is not None:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                                  num_iters=args.iters))
+    mesh, device = build_mesh(cfg, args.device)
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a: None)
 
     out_dir = Path(args.out_dir or cfg.out_dir) / cfg.exp_name / (
         cfg.run_name + time.strftime("-%Y%m%d-%H%M%S"))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "config.json").write_text(
-        json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
+    if mesh is not None:  # rank 0's clock names the run directory
+        import torch.distributed as dist
+
+        name = [str(out_dir)]
+        dist.broadcast_object_list(name, src=0)
+        out_dir = Path(name[0])
+    if rank0:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "config.json").write_text(
+            json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
 
     train_views, valid_views, pts_xyz, pts_rgb, norm = load_views(cfg.data)
     if pts_xyz is None:
         pts_xyz, pts_rgb = random_init_points(n=min(cfg.capacity, 100_000),
                                               seed=cfg.train.seed)
-    print(f"scene radius (spatial scale): {norm['radius']:.3f}")
+    say(f"scene radius (spatial scale): {norm['radius']:.3f}")
     scene = from_points(pts_xyz, pts_rgb, capacity=cfg.capacity,
                         sh_degree=cfg.sh_degree, device=device)
-    print(f"init: {len(pts_xyz)} points, capacity {cfg.capacity}, "
-          f"{len(train_views)} train / {len(valid_views)} valid views, {device}")
+    say(f"init: {len(pts_xyz)} points, capacity {cfg.capacity}, "
+        f"{len(train_views)} train / {len(valid_views)} valid views, {device}")
 
     trainer = Trainer(cfg.train, scene, norm["radius"], train_views, valid_views,
-                      out_dir=out_dir)
+                      out_dir=out_dir, mesh=mesh)
     if args.resume:
         resume_path = args.resume
         if resume_path == "auto":
             best = find_resume_checkpoint(out_dir.parent)
             resume_path = str(best) if best else None
             if best:
-                print(f"--resume auto: run {best.parent.name}, "
-                      f"step {int(best.name.split('-')[-1])}")
+                say(f"--resume auto: run {best.parent.name}, "
+                    f"step {int(best.name.split('-')[-1])}")
                 prev_cfg = best.parent / "config.json"
-                if prev_cfg.exists() and prev_cfg.read_text() != (
+                if rank0 and prev_cfg.exists() and prev_cfg.read_text() != (
                         out_dir / "config.json").read_text():
-                    print("WARNING: resumed run's config.json differs from the "
-                          "current config — trajectories will diverge")
+                    say("WARNING: resumed run's config.json differs from the "
+                        "current config — trajectories will diverge")
         if resume_path:
             trainer.restore_checkpoint(resume_path)
-            print(f"resumed from {resume_path} at step {trainer.step}")
+            say(f"resumed from {resume_path} at step {trainer.step}")
     trainer.train()
     trainer.validate()
-    save_ply(trainer.scene, out_dir / "point_cloud-final.ply")
-    print(f"done; artifacts in {out_dir}")
+    if rank0:
+        save_ply(trainer.scene, out_dir / "point_cloud-final.ply")
+    say(f"done; artifacts in {out_dir}")
     return trainer
 
 
+def build_mesh(cfg, device):
+    """(mesh or None, this rank's device). A mesh (``mesh_view`` > 1 or a
+    ``mesh_tile``) needs the ranks that torchrun starts; several ranks with
+    no mesh asked would each train alone, so both refuse."""
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch.device import resolve_device
+    from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
+
+    asked = cfg.mesh_tile is not None or cfg.mesh_view > 1
+    info = init_distributed(device)
+    if info is None:
+        if asked:
+            raise ValueError(f"mesh_view={cfg.mesh_view}, mesh_tile={cfg.mesh_tile} needs "
+                             f"one process per rank: launch with {LAUNCH}")
+        return None, resolve_device(device)
+    if not asked:
+        dist.destroy_process_group()
+        raise ValueError(f"{info.world_size} ranks but no mesh asked: set mesh_view "
+                         "and/or mesh_tile")
+    mesh = make_mesh(view=cfg.mesh_view, tile=cfg.mesh_tile, info=info)
+    if mesh.rank == 0:
+        print(f"mesh: view={mesh.shape['view']} x tile={mesh.shape['tile']} "
+              f"({mesh.size} devices)")
+        if mesh.shape["tile"] > 16:
+            print("WARNING: tile rings beyond 16 devices scale poorly (bands "
+                  "shrink below the per-splat O(capacity) stages — BENCH.md); "
+                  "the designed operating point is a HYBRID mesh: keep "
+                  "mesh_tile at 8-16 and grow mesh_view (e.g. "
+                  "--set mesh_view=4 --set mesh_tile=8)")
+    return mesh, info.device
+
+
 if __name__ == "__main__":
-    main()
+    import torch.distributed as dist
+
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -14,8 +14,9 @@ the port maps:
 - ``train.tiling.pair_grad_bf16`` and the top-level ``use_pallas`` are
   accepted and have no effect: they route the TPU's Pallas kernels, and the
   port keeps its pair gradients in f32.
-- ``mesh_view > 1`` or a ``mesh_tile`` raises until the multi-device step is
-  ported (item 9).
+- ``mesh_view``/``mesh_tile`` shape the ("view", "tile") mesh as in the JAX
+  configuration; the train CLI builds it over the ranks that
+  ``python -m torch.distributed.run`` starts (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -141,9 +142,4 @@ def load_config(path: str, overrides=()) -> RunConfig:
     raw = yaml.safe_load(Path(path).read_text()) or {}
     raw = apply_overrides(raw, overrides)
     raw = _interpolate(raw, raw)
-    cfg = _build(RunConfig, raw)
-    if cfg.mesh_view > 1 or cfg.mesh_tile is not None:
-        raise NotImplementedError(
-            f"mesh_view={cfg.mesh_view}, mesh_tile={cfg.mesh_tile}: the multi-device "
-            "step is not ported yet (set mesh_view: 1, mesh_tile: null)")
-    return cfg
+    return _build(RunConfig, raw)

@@ -21,7 +21,9 @@ reference's ``on_train_batch_start`` (gs_lightning_module.py:144-161):
 The ``Trainer`` adds adaptive pair budgets, NaN rollback, validation and
 checkpoints (``torch.save`` of the scene, Adam and the step, plus the view
 sampler's and the noise generator's state as JSON, so a resume replays the
-same trajectory) with retention, and a PLY at every validation.
+same trajectory) with retention, and a PLY at every validation. On a
+``parallel.Mesh`` every rank runs the loop (SPMD) with the sharded step of
+``parallel/shard.py``.
 """
 
 from __future__ import annotations
@@ -316,6 +318,10 @@ def sh_degree_step(scene: GaussianScene) -> GaussianScene:
     return scene.step_sh_degree()
 
 
+def _quiet(*args, **kwargs) -> None:
+    """The log function of ranks other than 0."""
+
+
 def _host_floats(logs: dict) -> dict:
     """Every log value (0-dim tensors) as a Python float, read from the
     device in one transfer (the counts are exact in float64)."""
@@ -331,8 +337,19 @@ class Trainer:
     The scene's device is the Trainer's: every view, the noise generator and
     the checkpoints' tensors live there. With ``batch_views`` B > 1 each step
     draws B views from the sampler and stacks their cameras, images,
-    backgrounds, depth maps and exposure rows. ``mesh`` is not ported yet
-    and raises.
+    backgrounds, depth maps and exposure rows.
+
+    With ``mesh`` (``parallel.make_mesh``) every rank runs this loop on its
+    own process: a step takes B x the mesh's view size views from the
+    identically seeded sampler, and each rank materialises only its view
+    group's rows; the sharded step (``parallel/shard.py``) keeps the scene
+    replicated and Adam ZeRO-1-sharded when the capacity divides by the rank
+    count. Every decision on the host reads values reduced over the mesh,
+    and the split noise comes from the identically seeded generator, so
+    every rank takes the same branches and holds the same scene. Rank 0
+    alone writes logs, PLYs and checkpoints; a checkpoint holds the whole
+    Adam state, so a mesh run resumes in one process and the other way
+    round. Validation renders the replicated scene on each rank, unsharded.
     """
 
     def __init__(
@@ -347,19 +364,25 @@ class Trainer:
         mesh=None,
     ):
         if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...): the multi-device step is not "
-                                      "ported yet (ROADMAP.md queue A, item 9)")
+            from gaussian_splatting_lightning_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+            if mesh.device != scene.device:
+                raise ValueError(f"the scene is on {scene.device}, the mesh rank on "
+                                 f"{mesh.device}")
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.rank == 0  # rank 0 alone writes
         self.cfg = cfg
         self.scene = scene
         self.device = scene.device
-        self.adam = init_adam(scene.params)
         self.spatial_scale = float(spatial_scale)
         self.train_views = list(train_views)
         self.valid_views = list(valid_views)
         self.out_dir = Path(out_dir) if out_dir else None
-        if self.out_dir:
+        if self.out_dir and self.is_writer:
             self.out_dir.mkdir(parents=True, exist_ok=True)
-        self.log_fn = log_fn
+        self.log_fn = log_fn if self.is_writer else _quiet
         self.step = 0
         # the split noise of densification: the JAX loop's PRNG key
         self.generator = torch.Generator(device=self.device)
@@ -371,6 +394,9 @@ class Trainer:
         h, w = self.train_views[0].image.shape[-2:]
         self.height, self.width = h, w
         self._build_steps()
+        # this rank's ZeRO-1 rows of Adam when the sharded step shards it
+        self._zero1 = mesh is not None and self._train_step.sharded_adam
+        self.adam = self._local_adam(init_adam(scene.params))
         self._sampler = ViewSampler(len(self.train_views), cfg.seed)
         self._view_cache: dict = {}
         self._depth_cache: dict = {}
@@ -383,8 +409,16 @@ class Trainer:
         self._last_ckpt: Optional[Path] = None
 
     def _build_steps(self):
-        self._train_step = make_train_step(self.cfg, self.spatial_scale, self.width,
-                                           self.height)
+        if self.mesh is not None:
+            from gaussian_splatting_lightning_tpu_torch.parallel.shard import (
+                make_sharded_train_step,
+            )
+
+            self._train_step = make_sharded_train_step(
+                self.cfg, self.spatial_scale, self.width, self.height, self.mesh)
+        else:
+            self._train_step = make_train_step(self.cfg, self.spatial_scale, self.width,
+                                               self.height)
         self._eval_step = make_eval_step(self.cfg, self.width, self.height)
         # validation-only grown budget re-derives from the new train budget
         self._valid_eval_step = None
@@ -497,18 +531,44 @@ class Trainer:
         """(view index, camera, image, background, depth target or None) for
         one step: one view, or with ``batch_views`` B > 1 the sampler's next
         B draws stacked along a leading axis, their ids as a (B,) device
-        tensor."""
+        tensor. On a mesh the step draws B x the view size, the ids are the
+        whole batch's and the rest this rank's view group's rows."""
         b = self.cfg.batch_views
         depth = self.cfg.w_depth > 0
-        if b == 1:
+        if b == 1 and self.mesh is None:
             idx = self._sampler.next_index()
             return (idx,) + self._device_view(idx) + (
                 self._device_depth(idx) if depth else None,)
-        idxs = [self._sampler.next_index() for _ in range(b)]
+        n_view = 1 if self.mesh is None else self.mesh.shape["view"]
+        all_idxs = [self._sampler.next_index() for _ in range(b * n_view)]
+        ids = torch.cat([self._view_ids[i:i + 1] for i in all_idxs])
+        idxs = self._local(all_idxs)
         cams, imgs, bgs = zip(*(self._device_view(i) for i in idxs))
-        ids = torch.cat([self._view_ids[i:i + 1] for i in idxs])
         depths = torch.stack([self._device_depth(i) for i in idxs]) if depth else None
         return ids, stack_cameras(cams), torch.stack(imgs), torch.stack(bgs), depths
+
+    def _local(self, rows):
+        """This rank's rows of a whole batch: its view group's slice on a
+        mesh, all of them in one process."""
+        if self.mesh is None:
+            return rows
+        b, v = self.cfg.batch_views, self.mesh.axis_index("view")
+        return rows[v * b:(v + 1) * b]
+
+    def _local_adam(self, adam: AdamState) -> AdamState:
+        if not self._zero1:
+            return adam
+        from gaussian_splatting_lightning_tpu_torch.parallel.shard import shard_adam
+
+        return shard_adam(adam, self.mesh)
+
+    def _whole_adam(self) -> AdamState:
+        """The whole Adam state (on a ZeRO-1 mesh every rank calls this)."""
+        if not self._zero1:
+            return self.adam
+        from gaussian_splatting_lightning_tpu_torch.parallel.shard import gather_adam
+
+        return gather_adam(self.adam, self.mesh)
 
     def densify_noise(self) -> torch.Tensor:
         """The split displacement's standard-normal draw, (capacity, 3)."""
@@ -522,10 +582,11 @@ class Trainer:
         if t < 1:
             return
         if t < d.densify_until and t > d.densify_since and t % d.densify_interval == 0:
-            self.scene, self.adam, stats = densify_step(
-                self.scene, self.adam, self.densify_noise(), d, self.spatial_scale,
+            self.scene, adam, stats = densify_step(
+                self.scene, self._whole_adam(), self.densify_noise(), d, self.spatial_scale,
                 t > d.opacity_reset_interval,
             )
+            self.adam = self._local_adam(adam)
             stats = {k: int(v) for k, v in _host_floats(stats).items()}
             if stats["n_dropped_children"] > 0:
                 self.log_fn(
@@ -559,7 +620,7 @@ class Trainer:
             if self.exposure is not None:
                 self.scene, self.adam, logs, exp_grad = self._train_step(
                     self.scene, self.adam, self.step, cam, img, bg,
-                    self.exposure.params[view_idx], **extra)
+                    self.exposure.params[self._local(view_idx)], **extra)
                 self.exposure = exposure_update(self.exposure, view_idx, exp_grad,
                                                 self.cfg.exposure_lr)
             else:
@@ -580,7 +641,7 @@ class Trainer:
                     f"step {self.step}: loss={logs['loss']:.4f} "
                     f"psnr={logs['psnr']:.2f} n={int(logs['n_gaussians'])}"
                 )
-                if self.out_dir:
+                if self.out_dir and self.is_writer:
                     with open(self.out_dir / "train_log.jsonl", "a") as f:
                         f.write(json.dumps(logs) + "\n")
             self.step += 1
@@ -640,7 +701,7 @@ class Trainer:
         metrics = []
         for i, view in enumerate(self.valid_views):
             image, depth, logs = self._valid_render(view)
-            if self.out_dir and i < 2:  # two sample views, like the reference
+            if self.out_dir and self.is_writer and i < 2:  # two views, like the reference
                 self._save_triptych(view, image, depth, f"valid{i}-{self.step:08d}.jpg")
             metrics.append(logs)
         mean = {f"valid_{k}": float(np.mean([m[k] for m in metrics])) for k in metrics[0]}
@@ -658,7 +719,7 @@ class Trainer:
             f"[valid] step {self.step}: psnr={mean['valid_psnr']:.2f} "
             f"loss={mean['valid_loss']:.4f}"
         )
-        if self.out_dir:
+        if self.out_dir and self.is_writer:
             with open(self.out_dir / "valid_log.jsonl", "a") as f:
                 f.write(json.dumps(mean) + "\n")
             gm.save_ply(self.scene, self.out_dir / f"point_cloud-{self.step:08d}.ply")
@@ -667,8 +728,15 @@ class Trainer:
     # -- checkpoint/resume (a capability the reference lacks) --------------
     def save_checkpoint(self):
         """``ckpt-XXXXXXXX/``: ``state.pt`` (scene, Adam, step, exposure) and
-        ``trainer_state.json`` (view sampler, noise generator)."""
+        ``trainer_state.json`` (view sampler, noise generator). On a mesh
+        every rank calls it (a ZeRO-1 Adam is gathered whole) and rank 0
+        writes."""
         path = (self.out_dir / f"ckpt-{self.step:08d}").absolute()
+        adam = self._whole_adam()
+        self._last_ckpt = path
+        if not self.is_writer:
+            self.mesh.barrier()  # rank 0 has written the checkpoint
+            return
         path.mkdir(parents=True, exist_ok=True)
         s = self.scene
         ckpt = {
@@ -676,9 +744,9 @@ class Trainer:
                           alive=s.alive, max_radii2d=s.max_radii2d,
                           grad_accum=s.grad_accum, grad_count=s.grad_count,
                           active_sh_degree=s.active_sh_degree),
-            "adam": {"count": self.adam.count,
-                     "mu": {k: getattr(self.adam.mu, k) for k in PARAM_NAMES},
-                     "nu": {k: getattr(self.adam.nu, k) for k in PARAM_NAMES}},
+            "adam": {"count": adam.count,
+                     "mu": {k: getattr(adam.mu, k) for k in PARAM_NAMES},
+                     "nu": {k: getattr(adam.nu, k) for k in PARAM_NAMES}},
             "step": self.step,
         }
         if self.exposure is not None:
@@ -689,8 +757,9 @@ class Trainer:
                           generator=bytes(self.generator.get_state().tolist()).hex())
         with open(path / "trainer_state.json", "w") as f:
             json.dump(host_state, f)
-        self._last_ckpt = path
         self._gc_checkpoints()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _gc_checkpoints(self):
         """Retention: keep only the newest ``keep_last_ckpts`` checkpoints by
@@ -715,8 +784,9 @@ class Trainer:
             grad_accum=sc["grad_accum"], grad_count=sc["grad_count"],
             active_sh_degree=int(sc["active_sh_degree"]))
         ad = ckpt["adam"]
-        self.adam = AdamState(count=int(ad["count"]), mu=GaussianParams(**ad["mu"]),
-                              nu=GaussianParams(**ad["nu"]))
+        self.adam = self._local_adam(AdamState(
+            count=int(ad["count"]), mu=GaussianParams(**ad["mu"]),
+            nu=GaussianParams(**ad["nu"])))
         self.step = int(ckpt["step"])
         if self.exposure is not None and "exposure" in ckpt:
             self.exposure = ExposureState(**ckpt["exposure"])

@@ -19,7 +19,7 @@ FORBIDDEN = {"jax", "jaxlib", "gaussian_splatting_lightning_tpu", "__graft_entry
 # the kernel tests run on the machine with the card, which has no JAX
 FILES = sorted((ROOT / PORT).rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda_kernels.py",
-    ROOT / "tests" / "torch_expand_layouts.py"]
+    ROOT / "tests" / "torch_expand_layouts.py", ROOT / "tests" / "torch_mesh_worker.py"]
 
 
 def imported_modules(path: Path):
@@ -40,7 +40,8 @@ def test_scan_covers_the_port():
                    "ops/rasterize_reference.py", "ops/rasterize_tiled.py",
                    "scripts/make_synthetic_scene.py", "scripts/eval.py",
                    "scripts/render_path.py", "scripts/export_splat.py", "scripts/view.py",
-                   "scripts/profile_render.py", "viewer/__init__.py", "ops/lpips.py"):
+                   "scripts/profile_render.py", "viewer/__init__.py", "ops/lpips.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/shard.py"):
         assert f"{PORT}/{module}" in names, module
     assert len(names) >= 30
     # the viewer page is the port's own file, not a path into the JAX package

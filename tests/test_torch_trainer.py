@@ -160,9 +160,10 @@ def test_load_config_matches_jax(path):
 
 
 def test_load_config_refuses_unported_fields():
-    """``mesh`` stays refused; ``train.rasterizer: xla`` now loads to the
-    tiled route, which reads ``tile_capacity`` and ``chunk`` (as JAX does),
-    and an unknown route name is refused."""
+    """``train.rasterizer: xla`` loads to the tiled route, which reads
+    ``tile_capacity`` and ``chunk`` (as JAX does), ``mesh_view`` and
+    ``mesh_tile`` load as the JAX loader's (the mesh is ported), and an
+    unknown route name is refused."""
     src = CONFIGS[0]
     cfg = tconfig.load_config(str(src), ["train.rasterizer=xla", "train.tiling.chunk=32",
                                          "train.tiling.tile_capacity=2048"])
@@ -173,10 +174,10 @@ def test_load_config_refuses_unported_fields():
     compare_config(cfg, want)
     with pytest.raises(ValueError, match="rasterizer"):
         tconfig.load_config(str(src), ["train.rasterizer=triton"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tconfig.load_config(str(src), ["mesh_view=2"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tconfig.load_config(str(src), ["mesh_tile=4"])
+    for sets in (["mesh_view=2"], ["mesh_tile=4"]):
+        got = tconfig.load_config(str(src), sets)
+        compare_config(got, jconfig.load_config(str(src), sets))
+        assert (got.mesh_view, got.mesh_tile) in ((2, None), (1, 4))
     with pytest.raises(KeyError, match="nonsense"):
         tconfig.load_config(str(src), ["train.nonsense=1"])
     cfg = tconfig.load_config(str(src), ["train.rasterizer=plain", "use_pallas=false",
@@ -292,8 +293,10 @@ def test_coupled_batched_loop_matches_jax():
 
 
 def test_trainer_refuses_unported_modes():
+    """A ``mesh`` that is not a ``parallel.Mesh`` is refused (the mesh
+    itself is ported: ``tests/test_torch_parallel.py``)."""
     xyz, views = gt_views(n_views=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         Trainer(small_cfg(), init_scene(xyz), 4.0, views, mesh=object(), **QUIET)
 
 

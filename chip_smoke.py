@@ -97,6 +97,25 @@ Phases (any failure exits non-zero):
      densify event at threshold 0) against the one-process CLI at
      ``batch_views=2``: logged losses within 2e-4, the same alive counts
      (``mesh_cli_row:``).
+  10. the measurement entry points, each a subprocess through its module
+     entry (``python -m ...scripts.<name>``): the bench (its small and
+     headline rungs, parity against the tiled route and the banded check;
+     gates: the last line parses, the headline's pairs are BENCH_PAIRS and
+     its budget 2,138,112, 0 dropped, finite rays/s, K1-K4 once and K5
+     twice a step, parity within the bench's 1e-4, the banded check ok),
+     ``bench_batched`` at its defaults (finite rows, 0 dropped) and
+     ``benchmark_scaling --meshes 1x1,1x2`` (the 1x1 row on NCCL, 1x2
+     skipped on one card, its eff columns null exactly when it dropped
+     pairs or overflowed a tile). Then, in this process, one call of each
+     entry point's work at the CLIs' sizes (the bench's small and headline
+     rungs, its parity rung and banded check, bench_batched at B = 8) with
+     every K1-K5 wrapper call recorded and held to its plain version on the
+     same inputs (a ``bench_kernels:`` line; K1 and K5 identical, K2 and K3
+     within 1e-4, K4 within 1e-5; K1-K4 called at least once on each path,
+     K5 twice where the loss has SSIM). A ``phase10:`` line holds the
+     numbers, with the headline's bound on the work its data needs
+     (``counted_bound_ms``: the roofline's bytes, K2's and K3's evaluations
+     up to each tile's early stop).
 
 Phase 6 also runs the train CLI with ``train.batch_views=4`` and exposure
 for BATCHED_LOOP_STEPS steps across one densify event (a
@@ -110,7 +129,9 @@ kernels' JSON record (``max_abs_err`` is the largest |kernel - plain| over
 the kernel's outputs; K1's outputs are integers; ``serve_launches`` holds
 each phase-7 CLI's launches, ``batched_launches`` phase 8's per B,
 ``mesh_launches`` phase 9's on the 1x1 mesh and on each rank of the (1, 4)
-and (2, 2) meshes) on the line before the last, and
+and (2, 2) meshes, ``bench_launches`` phase 10's bench headline's per step,
+``bench_err`` each phase-10 entry path's errors)
+on the line before the last, and
 ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 """
 
@@ -131,19 +152,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "gaussian_splatting_lightning_tpu_torch"
+sys.path.insert(0, str(ROOT))
+
+# the card's peaks and K2's operations per evaluation up to the kill
+# decision, shared with the bench's roofline
+from gaussian_splatting_lightning_tpu_torch.scripts.bench import (  # noqa: E402
+    F32_FLOPS,
+    HBM_BYTES_PER_S,
+    K2_OPS_TO_KILL,
+    PARITY_TOL,
+    gpu_line,
+    roofline_work,
+)
 
 BENCH_PAIRS = 2_094_637  # rect pairs of the bench scene at the bench camera
 K2_TOL = 1e-4
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak HBM3 bandwidth
-F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores (FMA = 2 flops)
 F32_ISSUE = F32_FLOPS / 2  # f32 instructions per second, FMA or not
-# K2's f32 operations per (pair, pixel) evaluation, exp counted as one:
-# up to the kill decision, every evaluation pays dx, dy, the quadratic form
-# (7 mul, 2 add, x -0.5), exp, x opacity, min and the 1/255 test (16), plus
-# four rect compares at 32 px tiles; a pair that passes adds the T test,
-# w = alpha T, four FMA (8 flops), 1 - alpha and T (1 - alpha) (12 flops in
-# 8 instructions)
-K2_OPS_TO_KILL = {16: 16, 32: 20}
+# a K2 evaluation that passes the kill adds the T test, w = alpha T, four
+# FMA (8 flops), 1 - alpha and T (1 - alpha) (12 flops in 8 instructions)
 K2_FLOPS_KEPT, K2_INSTR_KEPT = 12, 8
 # K3 evaluates exactly the (pair, pixel) set K2 did, with K2's chain up to
 # the kill decision; an evaluation that passes it adds the T test and
@@ -166,13 +192,6 @@ RENDER_KERNELS = ("expand_pairs", "composite_fwd")  # the render path's kernels
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -1922,7 +1941,9 @@ def band_kernel_errs(calls) -> dict:
     """Each recorded launch against its plain version on the same inputs:
     K1's keys and ids and K5's output as the largest |difference| (held to
     0), K2's largest |difference|, K3's and K4's each column's over its
-    largest |plain|, view by view (K3's zero rows must match too)."""
+    largest |plain|, view by view (K3's zero rows must match too). K2's row
+    also counts its work as its bound does: (pair, pixel) evaluations up to
+    each tile's early stop, and those past the kill."""
     import importlib
 
     import torch
@@ -1935,10 +1956,15 @@ def band_kernel_errs(calls) -> dict:
     errs = {}
     for name, (mod_name, _, plain_name) in KERNEL_SITES.items():
         plain = getattr(importlib.import_module(f"{PKG}.ops.{mod_name}"), plain_name)
-        worst = 0.0
+        worst, evaluations, kept = 0.0, 0, 0
         for args, kw, got in calls[name]:
             with torch.no_grad():
-                want = plain(*args, **kw)
+                if name == "composite_fwd":
+                    want, evals, keep = plain(*args, **kw, return_work=True)
+                    evaluations += int(evals.sum()) * args[6] ** 2
+                    kept += int(keep.sum())
+                else:
+                    want = plain(*args, **kw)
             if name == "expand_pairs":
                 err = max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
                 worst = max(worst, err)
@@ -1955,6 +1981,8 @@ def band_kernel_errs(calls) -> dict:
                           for g, w in zip(per_view(got), per_view(want)))
             worst = max(worst, err)
         errs[name] = {"calls": len(calls[name]), "err": worst}
+        if name == "composite_fwd":
+            errs[name].update(evaluations=evaluations, kept=kept)
     return errs
 
 
@@ -1968,22 +1996,29 @@ def moment_errs(got, want) -> dict:
             for k in PARAM_NAMES}
 
 
-def run_torchrun(args, timeout: int):
-    """``python -m torch.distributed.run --standalone`` with ``args``, in its
-    own process group so that a timeout stops every rank; returns (rc,
-    output)."""
+TORCHRUN = ["-m", "torch.distributed.run", "--standalone"]
+
+
+def run_group(args, timeout: int, what: str, stderr=subprocess.STDOUT):
+    """``python args`` in its own process group, so that a timeout stops it
+    and every process it started (SIGTERM first: torchrun's agent passes it
+    on to its ranks, which run in sessions of their own); returns (rc,
+    stdout, stderr or None)."""
     import signal
 
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone"] + args
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, process_group=0)
+    proc = subprocess.Popen([sys.executable] + args, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=stderr, text=True, process_group=0)
     try:
-        out, _ = proc.communicate(timeout=timeout)
+        out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        fail(f"phase 9: torchrun {args[:4]} ran past {timeout} s:\n{out[-3000:]}")
-    return proc.returncode, out
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        fail(f"{what}: {args[:6]} ran past {timeout} s:\n{out[-3000:]}\n{(err or '')[-3000:]}")
+    return proc.returncode, out, err
 
 
 def phase9_nccl(scene, budget):
@@ -2195,8 +2230,8 @@ def phase9_ranks(budget: int, work: Path):
     torch.cuda.empty_cache()
     out = work / "mesh_ranks.json"
     t0 = time.perf_counter()
-    rc, text = run_torchrun(["--nproc-per-node", "4", str(ROOT / "chip_smoke.py"),
-                             "--mesh-ranks", str(budget), str(out)], timeout=400)
+    rc, text, _ = run_group(TORCHRUN + ["--nproc-per-node", "4", str(ROOT / "chip_smoke.py"),
+                                        "--mesh-ranks", str(budget), str(out)], 400, "phase 9")
     if rc != 0 or not out.exists():
         fail(f"phase 9 (b): the ranks exited {rc}:\n{text[-12000:]}")
     ranks = json.loads(out.read_text())
@@ -2258,10 +2293,10 @@ def phase9_cli(work: Path, scene_dir: Path, loop_run: Path):
     for k, v in sets.items():
         argv += ["--set", f"{k}={v}"]
     t0 = time.perf_counter()
-    rc, text = run_torchrun(
-        ["--nproc-per-node", "4", "-m", f"{PKG}.scripts.train"] + argv
+    rc, text, _ = run_group(
+        TORCHRUN + ["--nproc-per-node", "4", "-m", f"{PKG}.scripts.train"] + argv
         + ["--out-dir", str(work / "mesh_cli"), "--set", "mesh_view=2", "--set", "mesh_tile=2"],
-        timeout=400)
+        400, "phase 9")
     mesh_s = time.perf_counter() - t0
     if rc != 0:
         fail(f"phase 9 (c): the mesh CLI exited {rc}:\n{text[-12000:]}")
@@ -2292,6 +2327,172 @@ def phase9_cli(work: Path, scene_dir: Path, loop_run: Path):
         fail(f"phase 9 (c): the densify event added no splats: {alive}")
 
 
+# phase 10: the measurement entry points, each run as a user runs it
+BENCH_BUDGET = 2_138_112  # BENCH_PAIRS + 2%, rounded up to 8192: the bench's budget
+BENCH_STEP_LAUNCHES = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
+                       "segment_sum": 1, "blur": 2}
+BATCHED_VIEWS = [1, 2, 4, 8]
+# the entry points' work recorded in this process, in the CLIs' shapes: the
+# bench's two rungs, its parity rung (an L1 loss: no K5) and banded check
+# (512x384, 100k splats), and bench_batched's largest batch
+ENTRY_PATHS = ("small-540p", "headline-1080p", "parity-512x384", "banded-512x384",
+               "batched-B8")
+NO_SSIM = ("parity-512x384",)
+
+
+def entry_kernel_errs() -> dict:
+    """One call of each entry point's work (``ENTRY_PATHS``) in this
+    process, from the same functions, seeds and sizes the CLIs use; every
+    K1-K5 wrapper call recorded and held to its plain version on the same
+    inputs (``band_kernel_errs``). Returns each path's errors and seconds."""
+    import numpy as np
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.scripts import (
+        banded_check,
+        bench,
+        bench_batched,
+    )
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
+
+    def bench_rung(w, h, n):
+        grad_fn, args, _, _ = bench.bench_problem(w, h, n)
+        return lambda: grad_fn(*args)
+
+    def batched():
+        w, h, n = 512, 384, 100_000
+        cams, budget = bench_batched.ring_problem(w, h, n)
+        rng = np.random.default_rng(0)
+        for b in BATCHED_VIEWS:  # the CLI's target draws, in its order
+            step, scene, *inputs = bench_batched.batch_problem(cams, budget, b, w, h, n, rng)
+        return lambda: step(scene, init_adam(scene.params), 0, *inputs)
+
+    makers = dict(zip(ENTRY_PATHS, (
+        lambda: bench_rung(960, 540, 250_000), lambda: bench_rung(1920, 1080, 1_000_000),
+        lambda: lambda: bench.parity_gate(iters=1), lambda: banded_check.run_check,
+        batched)))
+    errs, seconds = {}, {}
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        fn = make()
+        torch.cuda.synchronize()
+        with record_kernel_calls() as calls:
+            fn()
+            torch.cuda.synchronize()
+        errs[name] = band_kernel_errs(calls)
+        del calls, fn
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+    for name, e in errs.items():
+        bad = {k: e[k] for k, tol in BAND_TOL.items() if not (
+            e[k]["calls"] >= (0 if name in NO_SSIM else 2 if k == "blur" else 1)
+            and e[k]["err"] <= tol)}
+        if bad:
+            fail(f"phase 10: {name}'s kernels against their plain versions: {bad}")
+    return errs, seconds
+
+
+def run_cli(module: str, *args, timeout: int):
+    """``python -m <port>.scripts.<module> args`` on the card; returns its
+    stdout lines, its stderr and its wall seconds. A non-zero exit fails."""
+    t0 = time.perf_counter()
+    rc, out, err = run_group(["-m", f"{PKG}.scripts.{module}", *args], timeout,
+                             f"phase 10 ({module})", stderr=subprocess.PIPE)
+    if rc != 0:
+        fail(f"phase 10: {module} exited {rc}:\n{out[-3000:]}\n{err[-6000:]}")
+    return out.strip().splitlines(), err, time.perf_counter() - t0
+
+
+def last_json(lines, module: str) -> dict:
+    try:
+        return json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"phase 10: {module}'s last line is not JSON: {lines[-3:]}")
+
+
+def phase10() -> dict:
+    """The bench (its rungs, parity and banded check), the view-batched bench
+    and the scaling harness, each as a subprocess through its module entry;
+    then the entry points' kernel calls against their plain versions
+    (``entry_kernel_errs``). Returns the bench headline's launches per step
+    and each kernel's errors on each entry path."""
+    import torch
+
+    torch.cuda.empty_cache()
+    lines, err, bench_s = run_cli("bench", timeout=600)
+    head = last_json(lines, "bench")
+    # the result lines; the banded check prints its own lines between them
+    results = [json.loads(x) for x in lines if x.startswith('{"metric"')]
+    if [r["extra"]["rung"] for r in results] != ["small-540p"] + ["headline-1080p"] * 2 \
+            or not results[1]["extra"].get("provisional") or results[2] != head:
+        fail(f"phase 10: the bench's result lines: {lines}")
+    small = results[0]
+    print("bench_small: " + json.dumps(small), flush=True)
+    print("bench_result: " + lines[-1], flush=True)
+    ex = head["extra"]
+    parity = ex["parity_512x384_100k"]["routing_f32"]
+    if ex["pairs"] != BENCH_PAIRS or ex["pair_budget"] != BENCH_BUDGET or ex["dropped_pairs"] \
+            or small["extra"]["dropped_pairs"] or not math.isfinite(head["value"]):
+        fail(f"phase 10: bench pairs {ex['pairs']}, budget {ex['pair_budget']}, dropped "
+             f"{ex['dropped_pairs']}, value {head['value']}")
+    if ex["launches"] != BENCH_STEP_LAUNCHES:
+        fail(f"phase 10: the bench step launched {ex['launches']} per step")
+    if not (parity["image_max_abs"] <= PARITY_TOL and parity["grad_max_rel"] <= PARITY_TOL):
+        fail(f"phase 10: bench parity {parity}")
+    if not ex["banded_check"]["ok"]:
+        fail(f"phase 10: the banded check failed: {ex['banded_check']}\n{err[-3000:]}")
+
+    lines, _, batched_s = run_cli("bench_batched", timeout=300)
+    batched = last_json(lines, "bench_batched")
+    rows = batched["rows"]
+    if [r["batch_views"] for r in rows] != BATCHED_VIEWS or any(
+            r["dropped_pairs"] or not all(math.isfinite(r[k]) for k in (
+                "step_ms", "device_ms", "first_step_loss", "speedup_per_view"))
+            for r in rows):
+        fail(f"phase 10: bench_batched rows {rows}")
+
+    lines, _, scaling_s = run_cli("benchmark_scaling", "--meshes", "1x1,1x2", timeout=300)
+    scaling = last_json(lines, "benchmark_scaling")
+    (one,) = [r for r in scaling["rows"] if r["mesh"] == "1x1"] or [None]
+    if one is None or one["backend"] != "nccl" or one["shared_card"] or not (
+            math.isfinite(one["step_ms"]) and math.isfinite(one["loss"])):
+        fail(f"phase 10: benchmark_scaling's 1x1 row {one}")
+    # no efficiency across a drop: a row that renders less has none
+    full = one["dropped"] + one["tile_overflow"] == 0
+    if any((one[k] is not None) != full for k in ("wall_eff", "flops_eff", "bytes_eff")):
+        fail(f"phase 10: benchmark_scaling's 1x1 eff columns beside its drops: {one}")
+    if torch.cuda.device_count() == 1 and (scaling["skipped"] != ["1x2"]
+                                           or "skip 1x2: only 1 devices" not in lines):
+        fail(f"phase 10: benchmark_scaling did not skip 1x2 on one card: {lines}")
+
+    errs, checks_s = entry_kernel_errs()
+    # the headline's bound on the work its data needs: the roofline's bytes,
+    # and K2's and K3's evaluations up to each tile's early stop (as phases
+    # 3 and 5 count them) in place of the roofline's unculled pairs x 32^2
+    k2 = errs["headline-1080p"]["composite_fwd"]
+    _, nbytes = roofline_work(ex["pairs"], 32, 1_000_000, 1920, 1080)
+    ops = 2 * k2["evaluations"] * K2_OPS_TO_KILL[32] + k2["kept"] * (K2_FLOPS_KEPT
+                                                                     + K3_FLOPS_KEPT)
+    counted_ms = 1e3 * (nbytes / HBM_BYTES_PER_S + ops / F32_FLOPS)
+    print("bench_kernels: " + json.dumps(errs), flush=True)
+    summary = {
+        "bench_s": bench_s, "rays_per_s": head["value"], "step_ms": ex["step_ms"],
+        "device_ms": ex["device_ms"], "compile_s": ex["compile_s"],
+        "roofline_hard_ms": ex["roofline_hard_ms"], "pct_of_roofline": ex["pct_of_roofline"],
+        "counted_bound_ms": counted_ms, "pct_of_counted_bound": 100 * counted_ms / ex["step_ms"],
+        "kernel_checks_s": checks_s,
+        "small_rays_per_s": small["value"], "small_step_ms": small["extra"]["step_ms"],
+        "parity": parity, "banded_check": ex["banded_check"],
+        "batched_s": batched_s, "batched": {str(r["batch_views"]): {
+            k: r[k] for k in ("step_ms", "ms_per_view", "device_ms", "speedup_per_view",
+                              "peak_mem_bytes")} for r in rows},
+        "scaling_s": scaling_s, "scaling_1x1": one, "scaling_skipped": scaling["skipped"],
+    }
+    print("phase10: " + json.dumps(summary), flush=True)
+    return ex["launches"], {name: {path: e[name] for path, e in errs.items()}
+                            for name in BAND_TOL}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-ranks"]:  # one rank of phase 9 (b), under torchrun
         return mesh_ranks(int(sys.argv[2]), sys.argv[3])
@@ -2308,7 +2509,6 @@ def main() -> int:
         print(f"chip_smoke: {PKG}/ not found beside this script: run it from a "
               "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -2332,6 +2532,7 @@ def main() -> int:
         t9c = time.perf_counter()
         phase9_cli(work, scene_dir, run_dir)
         print(f"phase9: {t9 + time.perf_counter() - t9c:.1f} s", flush=True)
+    bench_launches, bench_errs = phase10()
     for row in kernels:
         row["loop_launches"] = loop_launches[row["name"]]
         row["serve_launches"] = {cli: n[row["name"]] for cli, n in serve_launches.items()}
@@ -2340,6 +2541,8 @@ def main() -> int:
             shape: (n[row["name"]] if isinstance(n, dict) else [r[row["name"]] for r in n])
             for shape, n in mesh_launches.items()}
         row["mesh_band_err"] = band_errs[row["name"]]
+        row["bench_launches"] = bench_launches[row["name"]]
+        row["bench_err"] = bench_errs[row["name"]]
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -40,6 +40,7 @@ from gaussian_splatting_lightning_tpu_torch import interop
 from gaussian_splatting_lightning_tpu_torch.core.camera import make_camera, stack_cameras
 from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
 from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+from gaussian_splatting_lightning_tpu_torch.scripts.bench_batched import ring_pose
 from gaussian_splatting_lightning_tpu_torch.training import densify as tdensify
 from gaussian_splatting_lightning_tpu_torch.training import exposure as texposure
 from gaussian_splatting_lightning_tpu_torch.training import loss as tloss
@@ -57,18 +58,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def ring_pose(i, total):
-    """A world-to-camera (3, 4) pose 4 units out on a ring, looking in."""
-    ang = 2 * np.pi * i / total
-    fwd = -np.array([np.cos(ang), 0.2, np.sin(ang)])
-    fwd /= np.linalg.norm(fwd)
-    pos = -4.0 * fwd
-    right = np.cross([0.0, 1.0, 0.0], fwd)
-    right /= np.linalg.norm(right)
-    R = np.stack([right, np.cross(fwd, right), fwd], 0)
-    return np.concatenate([R, (-R @ pos)[:, None]], 1)
 
 
 def ring_cameras(b, total=5):

@@ -41,7 +41,10 @@ def test_scan_covers_the_port():
                    "scripts/make_synthetic_scene.py", "scripts/eval.py",
                    "scripts/render_path.py", "scripts/export_splat.py", "scripts/view.py",
                    "scripts/profile_render.py", "viewer/__init__.py", "ops/lpips.py",
-                   "parallel/__init__.py", "parallel/mesh.py", "parallel/shard.py"):
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/shard.py",
+                   "scripts/bench.py", "scripts/bench_batched.py",
+                   "scripts/benchmark_scaling.py", "scripts/scaling_worker.py",
+                   "scripts/banded_check.py"):
         assert f"{PORT}/{module}" in names, module
     assert len(names) >= 30
     # the viewer page is the port's own file, not a path into the JAX package

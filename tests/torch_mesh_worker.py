@@ -24,6 +24,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from gaussian_splatting_lightning_tpu_torch.scripts.bench_batched import ring_pose  # noqa: E402
+
 W, H = 64, 112  # 2 x 4 tiles of 32 px, 4 x 7 of 16 px; the last band is cut
 N_SPLATS, SEED, SCALE, SH = 100, 1, 0.1, 1
 BATCH = 2  # the global batch of every step case
@@ -42,17 +44,6 @@ STEP_CASES = (
 SEAM_CASE = STEP_CASES[2]
 TRAINER_MESH = (2, 2)
 TRAINER_STEPS = 5
-
-
-def ring_pose(i, total):
-    """A world-to-camera (3, 4) pose 4 units out on a ring, looking in."""
-    ang = 2 * np.pi * i / total
-    fwd = -np.array([np.cos(ang), 0.2, np.sin(ang)])
-    fwd /= np.linalg.norm(fwd)
-    right = np.cross([0.0, 1.0, 0.0], fwd)
-    right /= np.linalg.norm(right)
-    R = np.stack([right, np.cross(fwd, right), fwd], 0)
-    return np.concatenate([R, (-R @ (-4.0 * fwd))[:, None]], 1)
 
 
 FOCAL = 50.0

@@ -17,6 +17,7 @@ from gaussian_splatting_lightning_tpu.models.gaussians import PARAM_NAMES
 from gaussian_splatting_lightning_tpu.ops.common import preprocess as jax_preprocess
 from gaussian_splatting_lightning_tpu_torch import interop
 from gaussian_splatting_lightning_tpu_torch.ops.common import Preprocessed
+from gaussian_splatting_lightning_tpu_torch.scripts import bench
 
 BG = np.array([0.1, 0.2, 0.3], np.float32)
 
@@ -72,8 +73,7 @@ def psnr(a, b) -> float:
 def activated(scene, lib):
     """The activated parameters (means, opacity, scales, rotation, SH), as
     the render wrappers pass them: fresh torch leaves or jnp arrays."""
-    x = (scene.params.xyz, scene.get_opacity(), scene.get_scales(),
-         scene.get_rotation(), scene.get_features())
+    x = bench.activated(scene)
     if lib == "torch":
         return [t.detach().clone() for t in x]
     return [jnp.asarray(t) for t in x]

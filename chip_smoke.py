@@ -13,23 +13,29 @@ Phases (any failure exits non-zero):
      (key, gauss) and tile ranges identical, K2 within 1e-4 and the same
      bits on a second run.
   3. the main path: the bench scene (1M splats, SH degree 3) through the
-     port's PLY round trip, four 1920x1080 views through ``render_scene``
-     with the budget from ``pair_budget``; every kernel must launch on every
-     view. Then each kernel is held against its plain version (K2 also
-     against its own second run, bit for bit) and timed on the bench view's
-     own inputs.
+     port's PLY round trip, four 1920x1080 views through the serving render
+     (``make_render``: captured on its first call, then replayed) with the
+     budget from ``pair_budget``, each held bit for bit to the eager render
+     (image, radii, depth, pairs); every kernel must launch on every view.
+     Then each kernel is held against its plain version (K2 also against
+     its own second run, bit for bit) and timed on the bench view's own
+     inputs.
   4. the port's render CLI on a small COLMAP scene that the port writes.
   5. the training step: at 256x192 with 20k splats, the whole step's
      gradients on route "cuda" against route "plain"; then the bench scene
-     at 1920x1080 trains for TRAIN_STEPS steps of ``make_train_step`` under
-     the same budget (a ``train_step:`` line each: loss finite, 0 dropped
-     pairs, K1-K4 launched once and K5 twice per step, every parameter
-     group moved). Then K3, K4 and K5 are held against their plain versions
-     (K3 and K4 also against their own second runs, bit for bit; K5 bit for
-     bit in both directions, its VJP launched on the unpadded cotangent as
-     ``BlurValid.backward`` does) and timed on the bench step's own inputs,
-     beside one-call library equivalents; ``train_stages_ms`` splits the
-     step and a profile line gives its device idle share. Each step's host
+     at 1920x1080 trains for TRAIN_STEPS + 1 steps of ``make_train_step``
+     under the same budget, eager (``capture=False``) and captured from the
+     same start (a ``train_step:`` line each: loss finite, 0 dropped pairs,
+     K1-K4 launched once and K5 twice per step, every parameter group
+     moved; ``step_graph_check``: each captured loss within STEP_GRAPH_TOL
+     of the eager one, each parameter and moment column after the last step
+     within STEP_GRAPH_TOL of its largest |eager|). Then K3, K4 and K5 are
+     held against their plain versions (K3 and K4 also against their own
+     second runs, bit for bit; K5 bit for bit in both directions, its VJP
+     launched on the unpadded cotangent as ``BlurValid.backward`` does) and
+     timed on the bench step's own inputs, beside one-call library
+     equivalents; ``train_stages_ms`` splits the step and the ``graph:``
+     line's profile lines give its device idle share. Each step's host
      syncs are counted (``torch.cuda.set_sync_debug_mode("warn")``).
   6. the training loop through the train CLI at 1920x1080, the operating
      point of ``configs/rehearsal_synthetic.yaml`` with its depth cut
@@ -41,11 +47,17 @@ Phases (any failure exits non-zero):
      in-process (step and event timers, host syncs, 20 steps profiled); run
      2 resumes its step-300 checkpoint through the module entry in a
      subprocess and must log the same losses. A ``train_loop:`` line holds
-     the numbers; checks: finite losses, a budget growth and 0 dropped pairs
-     at the last check, splats added at step 200, SH degree 3 in the final
-     checkpoint, held-out PSNR 1 dB above the init scene's, steps on no
-     cadence syncing no more often than phase 5's bare step, every kernel
-     launched.
+     the numbers (a quiet step's wall over LOOP_WINDOW, steps between two
+     syncs: a captured step returns before the card has run it, so the
+     host's time from one call to the next is its own); checks: finite
+     losses, a budget growth and 0 dropped pairs at the last check, splats
+     added at step 200, SH degree 3 in the final checkpoint, held-out PSNR
+     1 dB above the init scene's, steps on no cadence and no capture syncing
+     no more often than phase 5's bare step, every kernel launched. Then
+     the CLI for 40 steps with the loss made NaN at step 30
+     (``loop_rollback:``): one rollback to ckpt-00000020 on the captured
+     step, finite losses after. The loop's step is the captured one (it
+     captures at step 0 and on every SH degree step and budget change).
   7. the serving and evaluation CLIs in-process at 1920x1080, each with the
      launch counts set to 0 just before it: the scene generator (24 views of
      an 80k-splat ``clusters`` GT; 0 dropped pairs, the COLMAP model reads
@@ -75,7 +87,8 @@ Phases (any failure exits non-zero):
      on route "cuda" are held to the mean of the four single-view steps'
      (1e-4 of each column's maximum), its screen-space gradients to the
      stacked single-view ones. Launches per step at B = 4 stay within 1.3x
-     of B = 1's. A ``phase8:`` line holds the numbers.
+     of B = 1's. A ``phase8:`` line holds the numbers. The timed steps are
+     replays of the captured step; the eager step is timed beside them.
   9. the mesh (``parallel/``) at full width. (a) A 1x1 mesh on NCCL in this
      process: the sharded step on phase 5's bench view against phase 5's
      step (loss within 1e-5, Adam's first moments, (1 - beta1) times the
@@ -115,7 +128,19 @@ Phases (any failure exits non-zero):
      K5 twice where the loss has SSIM). A ``phase10:`` line holds the
      numbers, with the headline's bound on the work its data needs
      (``counted_bound_ms``: the roofline's bytes, K2's and K3's evaluations
-     up to each tile's early stop).
+     up to each tile's early stop). The bench and ``bench_batched`` replay
+     captured graphs; the kernel records run each path's work eagerly
+     (``capture=False``), since a replay calls no wrapper. The headline's
+     step is also timed in this process captured and eager, with the
+     device's busy time and idle share.
+
+Phases 3, 5, 8 and 10 print a ``graph:`` line: the capture's seconds, and
+for the captured and the eager path each the host wall and CUDA-event ms a
+call, the device's busy ms and idle share (``torch.profiler``), its kernels
+per call, the K1-K5 launches per call and the peak memory above what was
+allocated before the first call (a capture's included). Phases 6, 7 and 8
+run the captured path through the CLIs and ``make_train_step``, as users
+run them.
 
 Phase 6 also runs the train CLI with ``train.batch_views=4`` and exposure
 for BATCHED_LOOP_STEPS steps across one densify event (a
@@ -186,6 +211,11 @@ K3_FLOPS_KEPT = 38
 # must give its bits.
 K3_TOL, K4_TOL = 1e-4, 1e-5
 STEP_GRAD_TOL = 1e-4  # route "cuda" against "plain", share of each group's max
+# captured steps against eager ones: each loss relative, each parameter and
+# moment column after the last step as a share of its largest |eager|; the
+# autograd of gathers and index_add_ add with atomics, so the last bit may
+# differ from run to run
+STEP_GRAPH_TOL = 1e-6
 TRAIN_STEPS = 10
 RENDER_KERNELS = ("expand_pairs", "composite_fwd")  # the render path's kernels
 
@@ -268,6 +298,45 @@ def profile_render(render, wall_ms: float, reps: int = 5, unit: str = "render"):
     for k, _, n in rows:
         counts[k] = counts.get(k, 0) + n
     return dict(row, launches_by_kernel=counts)
+
+
+def wall_and_events(fn, reps: int):
+    """(host wall ms, CUDA-event ms) per call of ``fn`` over ``reps`` calls
+    in a row, synchronised at the end only."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, start.elapsed_time(end) / reps
+
+
+def graph_side(fn, reps: int, unit: str, peak: int, kernel_launches: dict) -> dict:
+    """One side of a ``graph:`` line: host wall and CUDA-event ms per call,
+    the device's busy ms and idle share and its kernels per call from
+    ``torch.profiler`` (a ``profile`` line), the K1-K5 launches per call, and
+    ``peak``: the peak memory of the side's first calls (a capture's
+    included) above what was allocated before them."""
+    wall, event = wall_and_events(fn, reps)
+    prof = profile_render(fn, wall, reps=3, unit=unit) or {}
+    return {"wall_ms": wall, "event_ms": event,
+            "busy_ms": prof.get(f"device_busy_ms_per_{unit}"),
+            "idle_share": prof.get("device_idle_share"),
+            "device_launches": prof.get(f"device_kernels_per_{unit}"),
+            "kernel_launches": kernel_launches, "peak_mem_added_bytes": peak}
+
+
+def print_graph_line(phase: str, capture_s: float, captured: dict, eager: dict,
+                     **extra) -> dict:
+    row = dict({"phase": phase, "capture_s": capture_s, "captured": captured,
+                "eager": eager}, **extra)
+    print("graph: " + json.dumps(row), flush=True)
+    return row
 
 
 def probe():
@@ -441,7 +510,7 @@ def phase3(work: Path):
     from gaussian_splatting_lightning_tpu_torch.ops.binning import expand_pairs, expand_pairs_plain
     from gaussian_splatting_lightning_tpu_torch.ops.budget import estimate_pairs, pair_budget
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
-    from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import make_render, render_scene
 
     w, h, blk = 1920, 1080, 32
     made = interop.synthetic_scene(1_000_000, 1_000_000, sh_degree=3, scale=0.008)
@@ -470,22 +539,48 @@ def phase3(work: Path):
         render_scene(scene, cam, w, h, bg, tiling)
     torch.cuda.synchronize()
 
+    # eager renders: the reference of the captured ones, and their times
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    eager = []
+    for cam in cams:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, stats = render_scene(scene, cam, w, h, bg, tiling)
+        torch.cuda.synchronize()
+        eager.append((out, {k: int(v) for k, v in stats.items()},
+                      (time.perf_counter() - t0) * 1e3))
+    eager_peak = torch.cuda.max_memory_allocated() - held
+
+    # the main path: the serving render, captured on its first call and
+    # replayed on every view, held bit for bit to the eager render
+    render = make_render(w, h, tiling)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     _build.reset_launch_counts()
     per_view = []
     for i, cam in enumerate(cams):
         before = dict(_build.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, stats = render_scene(scene, cam, w, h, bg, tiling)
+        out, stats = render(scene, cam, bg)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launched = {k: _build.launches[k] - before[k] for k in RENDER_KERNELS}
-        row = {"view": i, "ms": ms}
+        ref, ref_stats, eager_ms = eager[i]
+        same = {f: torch.equal(getattr(out, f), getattr(ref, f))
+                for f in ("image", "radii", "depth")}
+        same["num_pairs"] = int(stats["num_pairs"]) == ref_stats["num_pairs"]
+        row = {"view": i, "ms": ms, "eager_ms": eager_ms}
         row.update({k: int(v) for k, v in stats.items()
                     if k in ("num_pairs", "num_binned_pairs", "num_dropped_pairs")})
         row["launches"] = launched
+        row["bits_equal_eager"] = same
         per_view.append(row)
         print("view: " + json.dumps(row), flush=True)
+        if not all(same.values()):
+            fail(f"view {i}: the captured render differs from the eager render: {same}")
         img = out.image
         if tuple(img.shape) != (3, h, w) or tuple(out.depth.shape) != (1, h, w):
             fail(f"view {i}: image {tuple(img.shape)} depth {tuple(out.depth.shape)}")
@@ -498,6 +593,7 @@ def phase3(work: Path):
             fail(f"view {i}: {row['num_dropped_pairs']} pairs dropped")
         if any(v < 1 for v in launched.values()):
             fail(f"view {i}: a kernel was not launched: {launched}")
+    replay_peak = torch.cuda.max_memory_allocated() - held
     launches = {k: _build.launches[k] for k in RENDER_KERNELS}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     dev_pairs = per_view[0]["num_pairs"]
@@ -562,8 +658,15 @@ def phase3(work: Path):
         "composite_fwd (K2)": k2_ms,
     }
     print("stages_ms: " + json.dumps(stages), flush=True)
-    profile_render(lambda: render_scene(scene, cams[0], w, h, bg, tiling),
-                   stages["render_scene"])
+    del eager
+    eager_render = make_render(w, h, tiling, capture=False)
+    per_render = {k: 1 for k in RENDER_KERNELS}
+    print_graph_line(
+        "3 render", render.captured.capture_s,
+        graph_side(lambda: render(scene, cams[0], bg), 20, "render", replay_peak, per_render),
+        graph_side(lambda: eager_render(scene, cams[0], bg), 20, "render", eager_peak,
+                   per_render),
+        bits_equal_eager=True)
     # K1's inputs alone: the device time of the tile rects and rows, the depth
     # sort and the slot offsets, apart from the host's launch gaps that the events include
     profile_render(lambda: binning.expand_inputs(prep, gx, gy, 0, gy, blk),
@@ -714,46 +817,84 @@ def phase5(scene, budget):
     bg = torch.zeros(3, device="cuda")
     tiling = TilingConfig(max_pairs=budget, block=blk)
     cfg = trainer.TrainConfig(tiling=tiling)
-    step_fn = trainer.make_train_step(cfg, 1.0, w, h)
-    start = {k: getattr(scene.params, k).clone() for k in PARAM_NAMES}
-    state = {"scene": scene, "adam": init_adam(scene.params), "step": 0}
-
-    def one_step():
-        state["scene"], state["adam"], logs = step_fn(
-            state["scene"], state["adam"], state["step"], cam, target, bg)
-        state["step"] += 1
-        return logs
-
-    one_step()  # warm-up: library loads, allocator
-    torch.cuda.synchronize()
     expected = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
                 "segment_sum": 1, "blur": 2}
-    _build.reset_launch_counts()
-    step_ms, step_syncs = [], []
-    for _ in range(TRAIN_STEPS):
-        before = dict(_build.launches)
+    start = {k: getattr(scene.params, k).clone() for k in PARAM_NAMES}
+    # TRAIN_STEPS + 1 steps eager and captured from the same start: step 0
+    # warms up (captured: warm-up, capture, replay), the rest are timed
+    eager_fn = trainer.make_train_step(cfg, 1.0, w, h, capture=False)
+    step_fn = trainer.make_train_step(cfg, 1.0, w, h)
+    runs = {}
+    for name, fn in (("eager", eager_fn), ("captured", step_fn)):
+        state = {"scene": scene, "adam": init_adam(scene.params), "step": 0}
+
+        def one_step(fn=fn, state=state):
+            state["scene"], state["adam"], logs = fn(
+                state["scene"], state["adam"], state["step"], cam, target, bg)
+            state["step"] += 1
+            return logs
+
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with count_syncs() as caught:
-            logs = one_step()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        losses = [float(one_step()["loss"])]
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        step_ms.append(ms)
-        step_syncs.append(n_syncs(caught))
-        launched = {k: _build.launches[k] - before[k] for k in before}
-        row = {"step": state["step"] - 1, "ms": ms, "loss": float(logs["loss"]),
-               "psnr": float(logs["psnr"]), "num_pairs": int(logs["num_pairs"]),
-               "dropped": int(logs["num_dropped_pairs"]), "host_syncs": step_syncs[-1],
-               "launches": launched}
-        print("train_step: " + json.dumps(row), flush=True)
-        if not math.isfinite(row["loss"]):
-            fail(f"train step {row['step']}: loss {row['loss']}")
-        if row["dropped"] != 0:
-            fail(f"train step {row['step']}: {row['dropped']} pairs dropped")
-        if launched != expected:
-            fail(f"train step {row['step']}: launches {launched}, expected {expected}")
+        if name == "captured":  # the main path's counts: the timed replays
+            _build.reset_launch_counts()
+        rows, syncs = [], []
+        for _ in range(TRAIN_STEPS):
+            before = dict(_build.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with count_syncs() as caught:
+                logs = one_step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            syncs.append(n_syncs(caught))
+            launched = {k: _build.launches[k] - before[k] for k in before}
+            rows.append({"step": state["step"] - 1, "ms": ms, "loss": float(logs["loss"]),
+                         "psnr": float(logs["psnr"]), "num_pairs": int(logs["num_pairs"]),
+                         "dropped": int(logs["num_dropped_pairs"]),
+                         "host_syncs": syncs[-1], "launches": launched})
+            losses.append(rows[-1]["loss"])
+            if not math.isfinite(rows[-1]["loss"]):
+                fail(f"{name} train step {rows[-1]['step']}: loss {rows[-1]['loss']}")
+            if rows[-1]["dropped"] != 0:
+                fail(f"{name} train step {rows[-1]['step']}: {rows[-1]['dropped']} pairs dropped")
+            if launched != expected:
+                fail(f"{name} train step {rows[-1]['step']}: launches {launched}, "
+                     f"expected {expected}")
+        runs[name] = dict(state=state, one_step=one_step, rows=rows, losses=losses,
+                          syncs=syncs, peak=torch.cuda.max_memory_allocated() - held)
     launches = dict(_build.launches)
+    eager, captured = runs["eager"], runs["captured"]
+    for row, ref in zip(captured["rows"], eager["rows"]):
+        print("train_step: " + json.dumps(dict(row, eager_ms=ref["ms"], eager_loss=ref["loss"],
+                                               eager_host_syncs=ref["host_syncs"])),
+              flush=True)
     print(f"train path launches: {json.dumps(launches)}", flush=True)
+    # the captured steps against the eager ones: every loss, then every
+    # parameter and moment column after the last step
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(captured["losses"], eager["losses"]))
+    state_err, bits = {}, {}
+    for part in ("params", "mu", "nu"):
+        for k in PARAM_NAMES:
+            get = ((lambda st, k=k: getattr(st["scene"].params, k)) if part == "params"
+                   else (lambda st, k=k, part=part: getattr(getattr(st["adam"], part), k)))
+            a, b = get(captured["state"]), get(eager["state"])
+            state_err[f"{part}.{k}"] = col_err(a.reshape(a.shape[0], -1),
+                                               b.reshape(b.shape[0], -1))
+            bits[f"{part}.{k}"] = torch.equal(a, b)
+    step_check = {"loss_max_rel_err": loss_err, "state_col_err_max": max(state_err.values()),
+                  "state_col_err": state_err, "bits_equal": bits,
+                  "losses_bit_equal": captured["losses"] == eager["losses"],
+                  "tolerance": STEP_GRAPH_TOL}
+    print("step_graph_check: " + json.dumps(step_check), flush=True)
+    if not (loss_err <= STEP_GRAPH_TOL and max(state_err.values()) <= STEP_GRAPH_TOL):
+        fail(f"phase 5: {TRAIN_STEPS + 1} captured steps differ from eager: loss {loss_err}, "
+             f"state {max(state_err.values())}")
+    state, one_step = captured["state"], captured["one_step"]
+    step_ms, step_syncs = [r["ms"] for r in captured["rows"]], captured["syncs"]
     scene = state["scene"]
     for k in PARAM_NAMES:
         moved = float((getattr(scene.params, k) - start[k]).abs().max())
@@ -762,6 +903,16 @@ def phase5(scene, budget):
     if not bool(torch.isfinite(scene.grad_accum).all()) or float(scene.grad_accum.max()) <= 0:
         fail("densification statistics did not accumulate")
     del start
+    eager_wall = sorted(r["ms"] for r in eager["rows"])[TRAIN_STEPS // 2]
+    wall = sorted(step_ms)[TRAIN_STEPS // 2]
+    print_graph_line(
+        "5 step", step_fn.captured.capture_s,
+        dict(graph_side(one_step, 5, "step", captured["peak"], step_fn.captured.launches),
+             step_wall_ms_median=wall),
+        dict(graph_side(eager["one_step"], 5, "step", eager["peak"], expected),
+             step_wall_ms_median=eager_wall),
+        loss_max_rel_err=loss_err, state_col_err_max=max(state_err.values()))
+    del runs, eager
 
     # the bench step's own inputs to K3, K4 and K5
     prep = _prep(scene, cam, w, h)
@@ -925,7 +1076,6 @@ def phase5(scene, budget):
     print("train_stages_ms: " + json.dumps(
         dict(stages, step_wall_ms_median=wall, step_wall_ms=step_ms)), flush=True)
     del fwd_out, loss, grads, pgrads, leaves, live
-    profile_render(one_step, wall, reps=3, unit="step")
     return max(step_syncs), [
         {"name": "composite_bwd", "route": "cuda",
          "source": f"{PKG}/csrc/composite_bwd.cu",
@@ -967,6 +1117,10 @@ LOOP_SETS = {
     "train.overflow_check_interval": 50,
 }
 LOOP_PROFILE = (160, 180)  # steps profiled: on no cadence
+# steps timed between two syncs, unprofiled: on no cadence. A captured step
+# returns before the card has run it, so the host's wall from one call to
+# the next is its own time a step, not the step's
+LOOP_WINDOW = (110, 140)
 LOOP_LOSS_TOL = 1e-6  # run 2 (resumed at step 300) against run 1
 
 
@@ -1091,7 +1245,8 @@ def phase6(bare_step_syncs: int, work: Path):
     del train_views, valid_views
 
     # ---- run 1: the CLI in-process, instrumented -------------------
-    rec = {"calls": {}, "events": [], "budget_at_save": {}, "last": -1, "prof": []}
+    rec = {"calls": {}, "events": [], "budget_at_save": {}, "last": -1, "prof": [],
+           "captures": {}, "window": []}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def make_timed(*a, **k):
@@ -1102,9 +1257,16 @@ def phase6(bare_step_syncs: int, work: Path):
                 torch.cuda.synchronize()
                 rec["prof"].append(time.perf_counter())
                 (prof.start if len(rec["prof"]) == 1 else prof.stop)()
+            if step in LOOP_WINDOW and len(rec["window"]) < 2:
+                torch.cuda.synchronize()
+                rec["window"].append(time.perf_counter())
             rec["calls"].setdefault(step, (time.perf_counter(), len(caught)))
             rec["last"] = step
-            return step_fn(scene, adam, step, *rest, **kw)
+            n = step_fn.captured.captures
+            out = step_fn(scene, adam, step, *rest, **kw)
+            if step_fn.captured.captures > n:  # a new key: this call captured
+                rec["captures"][step] = step_fn.captured.capture_s
+            return out
 
         return timed
 
@@ -1180,10 +1342,15 @@ def phase6(bare_step_syncs: int, work: Path):
         fail(f"phase 6: held-out PSNR {final_psnr} at step {valid[-1]['step']}, init "
              f"{init_psnr}")
 
-    # host syncs and wall time of the steps on no cadence
+    # host syncs and wall time of the steps on no cadence and no capture (a
+    # capture follows an SH degree step and a budget change, the JAX loop's
+    # recompiles)
     calls = rec["calls"]
+    if not rec["captures"] or 0 not in rec["captures"]:
+        fail(f"phase 6: the train step captured at steps {sorted(rec['captures'])}")
     quiet = [t for t in range(30, 599) if t % 50 and (t + 1) % 100 and t + 1 in calls
-             and not LOOP_PROFILE[0] - 2 <= t <= LOOP_PROFILE[1] + 1]
+             and t not in rec["captures"] and not any(
+                 lo - 2 <= t <= hi + 1 for lo, hi in (LOOP_PROFILE, LOOP_WINDOW))]
     walls = [(calls[t + 1][0] - calls[t][0]) * 1e3 for t in quiet]
     syncs = [n_syncs(caught[calls[t][1]:calls[t + 1][1]]) for t in quiet]
     if max(syncs) > bare_step_syncs:
@@ -1215,13 +1382,15 @@ def phase6(bare_step_syncs: int, work: Path):
                     for s in hist2)
     alive2 = {s: int(r["n_gaussians"]) for s, r in hist2.items()}
 
-    wall = sorted(walls)[len(walls) // 2]
+    host_ms = sorted(walls)[len(walls) // 2]
     steps = LOOP_PROFILE[1] - LOOP_PROFILE[0]
+    wall = (rec["window"][1] - rec["window"][0]) * 1e3 / (LOOP_WINDOW[1] - LOOP_WINDOW[0])
     row = {
-        "step_wall_ms_median": wall, "steps_timed": len(walls),
-        "step_wall_ms_min": min(walls), "step_wall_ms_max": max(walls),
+        "step_wall_ms_window": wall, "window_steps": list(LOOP_WINDOW),
+        "host_ms_per_step_median": host_ms, "steps_timed": len(walls),
+        "host_ms_per_step_min": min(walls), "host_ms_per_step_max": max(walls),
         # the profiler's host overhead stretches its window, so the idle
-        # share is taken against the median wall of the unprofiled steps
+        # share is taken against the unprofiled window's wall a step
         "device_idle_share": 1.0 - busy_ms / steps / wall,
         "profiled_steps": list(LOOP_PROFILE), "device_busy_ms_per_step": busy_ms / steps,
         "wall_ms_per_step_profiled": window_ms / steps,
@@ -1232,14 +1401,73 @@ def phase6(bare_step_syncs: int, work: Path):
         "alive_resumed": alive2, "init_psnr": init_psnr,
         "valid_psnr": {v["step"]: v["valid_psnr"] for v in valid},
         "resume_max_rel_loss_diff": loss_diff, "launches": launches,
+        "captures_s_by_step": rec["captures"],
         "run1_s": run1_s, "run2_s": run2_s, "phase_s": time.perf_counter() - t_phase,
     }
     print("train_loop: " + json.dumps(row), flush=True)
     if not loss_diff <= LOOP_LOSS_TOL:
         fail(f"phase 6: the resumed run's losses differ from run 1's by {loss_diff} "
              f"relative (> {LOOP_LOSS_TOL})")
+    loop_rollback(argv, work)
     loop_batched(argv, init_psnr, max(syncs), work)
     return launches, run_dir, root, final_psnr
+
+
+ROLLBACK_STEP = 30  # a checked step after the step-20 checkpoint
+
+
+def loop_rollback(argv, work: Path):
+    """The NaN rollback on the captured step: the train CLI at phase 6's
+    operating point cut to 40 steps with a checkpoint at 20, the step's loss
+    made NaN at ROLLBACK_STEP; the loop must restore ckpt-00000020 (its
+    scene copied into the graph's buffers) and train on with finite losses."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
+    from gaussian_splatting_lightning_tpu_torch.training import trainer as tr
+
+    t0 = time.perf_counter()
+    argv = list(argv)
+    argv[argv.index("--out-dir") + 1] = str(work / "runs_rollback")
+    for k, v in {"train.num_iters": 40, "train.checkpoint_interval": 20,
+                 "train.log_interval": 5, "train.overflow_check_interval": 5,
+                 "run_name": "rollback"}.items():
+        argv += ["--set", f"{k}={v}"]
+    orig, poisoned = tr.make_train_step, []
+
+    def make_poisoned(*a, **k):
+        step_fn = orig(*a, **k)
+
+        def step(scene, adam, t, *rest, **kw):
+            out = step_fn(scene, adam, t, *rest, **kw)
+            if t == ROLLBACK_STEP and not poisoned:
+                poisoned.append(t)
+                out = out[:2] + (dict(out[2], loss=torch.tensor(float("nan"))),) + out[3:]
+            return out
+
+        step.captured = step_fn.captured
+        return step
+
+    tee = Tee()
+    tr.make_train_step = make_poisoned
+    try:
+        with contextlib.redirect_stdout(tee):
+            trainer = train_cli.main(argv)
+    finally:
+        tr.make_train_step = orig
+    text = "".join(tee.parts)
+    hist = trainer.history
+    row = {"rollbacks": trainer._nan_rollbacks, "final_step": trainer.step,
+           "captured": trainer._train_step.captured is not None,
+           "logged": [[h["step"], h["loss"]] for h in hist],
+           "seconds": time.perf_counter() - t0}
+    print("loop_rollback: " + json.dumps(row), flush=True)
+    if (trainer._nan_rollbacks != 1 or f"[recover] step {ROLLBACK_STEP}" not in text
+            or not all(math.isfinite(h["loss"]) for h in hist) or trainer.step <= 20
+            or not row["captured"]):
+        fail(f"phase 6: the NaN rollback on the captured step: {row}")
+    del trainer
+    torch.cuda.empty_cache()
 
 
 BATCHED_LOOP_STEPS = 250  # across the densify event at step 200
@@ -1265,7 +1493,7 @@ def loop_batched(argv, init_psnr: float, single_syncs: int, work: Path):
     argv[argv.index("--out-dir") + 1] = str(work / "runs_batched")
     for k, v in BATCHED_LOOP_SETS.items():
         argv += ["--set", f"{k}={v}"]
-    calls, prof_t = {}, []
+    calls, prof_t, captures, window = {}, [], {}, []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     orig = tr.make_train_step
 
@@ -1277,8 +1505,15 @@ def loop_batched(argv, init_psnr: float, single_syncs: int, work: Path):
                 torch.cuda.synchronize()
                 prof_t.append(time.perf_counter())
                 (prof.start if len(prof_t) == 1 else prof.stop)()
+            if step in LOOP_WINDOW and len(window) < 2:
+                torch.cuda.synchronize()
+                window.append(time.perf_counter())
             calls.setdefault(step, (time.perf_counter(), len(caught)))
-            return step_fn(scene, adam, step, *rest, **kw)
+            n = step_fn.captured.captures
+            out = step_fn(scene, adam, step, *rest, **kw)
+            if step_fn.captured.captures > n:
+                captures[step] = step_fn.captured.capture_s
+            return out
 
         return timed
 
@@ -1309,7 +1544,8 @@ def loop_batched(argv, init_psnr: float, single_syncs: int, work: Path):
         fail(f"phase 6 (batched): held-out PSNR {final_psnr} at step {valid[-1]['step']}, "
              f"init {init_psnr}; exposure moved {moved}")
     quiet = [t for t in range(30, steps - 1) if t % 50 and (t + 1) % 100 and t + 1 in calls
-             and not LOOP_PROFILE[0] - 2 <= t <= LOOP_PROFILE[1] + 1]
+             and t not in captures and not any(
+                 lo - 2 <= t <= hi + 1 for lo, hi in (LOOP_PROFILE, LOOP_WINDOW))]
     walls = [(calls[t + 1][0] - calls[t][0]) * 1e3 for t in quiet]
     syncs = [n_syncs(caught[calls[t][1]:calls[t + 1][1]]) for t in quiet]
     if max(syncs) > single_syncs:
@@ -1318,10 +1554,12 @@ def loop_batched(argv, init_psnr: float, single_syncs: int, work: Path):
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0) / 1e3
     n_prof = LOOP_PROFILE[1] - LOOP_PROFILE[0]
-    wall = sorted(walls)[len(walls) // 2]
-    row = {"views_per_step": 4, "steps": steps, "step_wall_ms_median": wall,
-           "wall_ms_per_view": wall / 4, "steps_timed": len(walls),
-           "step_wall_ms_min": min(walls), "step_wall_ms_max": max(walls),
+    host_ms = sorted(walls)[len(walls) // 2]
+    wall = (window[1] - window[0]) * 1e3 / (LOOP_WINDOW[1] - LOOP_WINDOW[0])
+    row = {"views_per_step": 4, "steps": steps, "step_wall_ms_window": wall,
+           "wall_ms_per_view": wall / 4, "host_ms_per_step_median": host_ms,
+           "steps_timed": len(walls), "host_ms_per_step_min": min(walls),
+           "host_ms_per_step_max": max(walls),
            "device_busy_ms_per_step": busy_ms / n_prof,
            "device_idle_share": 1.0 - busy_ms / n_prof / wall,
            "host_syncs_per_quiet_step": [min(syncs), max(syncs)],
@@ -1329,7 +1567,7 @@ def loop_batched(argv, init_psnr: float, single_syncs: int, work: Path):
            "loss": {s: r["loss"] for s, r in sorted(hist.items())},
            "alive": {s: int(r["n_gaussians"]) for s, r in sorted(hist.items())},
            "init_psnr": init_psnr, "final_psnr": final_psnr,
-           "exposure_max_move": moved, "launches": launches,
+           "exposure_max_move": moved, "launches": launches, "captures_s_by_step": captures,
            "phase_s": time.perf_counter() - t_phase}
     print("train_loop_batched: " + json.dumps(row), flush=True)
 
@@ -1594,9 +1832,11 @@ def phase7(work: Path, run_dir: Path, scene_dir: Path, loop_psnr: float, bench_p
     with torch.no_grad():
         # the device's share of a camera-path frame: the same render on the
         # path's budget, profiled, against the path's median host wall
-        path_tiling = TilingConfig(max_pairs=row["render_path"]["max_pairs"])
-        profile_render(lambda: tr.render_scene(scene, vcam, w, h, vbg, path_tiling),
+        # (the captured render, as the path CLI replays it)
+        path_render = tr.make_render(w, h, TilingConfig(max_pairs=row["render_path"]["max_pairs"]))
+        profile_render(lambda: path_render(scene, vcam, vbg),
                        row["render_path"]["frame_wall"]["p50_ms"], unit="path_frame")
+        del path_render
         ref, ref_stats = tr.render_scene(scene, vcam, w, h, vbg, tiling)
         tiled_render()  # warm-up: allocator
         torch.cuda.reset_peak_memory_stats()
@@ -1794,25 +2034,43 @@ def phase8(scene, budget):
     m = -(-budget // 128) * 128
     expected = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
                 "segment_sum": 1, "blur": 2}
-    rows, launches, by_kernel = {}, {}, {}
+    rows, launches, by_kernel, graphs = {}, {}, {}, {}
     for b in BATCH_SIZES:
         cfg = trainer.TrainConfig(tiling=tiling, batch_views=b)
-        step_fn = trainer.make_train_step(cfg, 1.0, w, h)
         if b == 1:
             cam, img, bg = cams[0], targets[0], torch.zeros(3, device="cuda")
         else:
             cam, img, bg = stack_cameras(cams[:b]), targets[:b], torch.zeros(b, 3, device="cuda")
-        state = {"scene": scene, "adam": init_adam(scene.params), "step": 0}
 
-        def one_step():
-            state["scene"], state["adam"], logs = step_fn(
-                state["scene"], state["adam"], state["step"], cam, img, bg)
-            state["step"] += 1
-            return logs
+        def stepper(step_fn):
+            state = {"scene": scene, "adam": init_adam(scene.params), "step": 0}
 
-        one_step()  # warm-up
+            def one_step():
+                state["scene"], state["adam"], logs = step_fn(
+                    state["scene"], state["adam"], state["step"], cam, img, bg)
+                state["step"] += 1
+                return logs
+
+            return one_step
+
+        # eager beside the captured step: its wall, events, busy time and peak
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        eager_step = stepper(trainer.make_train_step(cfg, 1.0, w, h, capture=False))
+        eager_step()
+        eager_side = graph_side(eager_step, 3, "step", 0, expected)
+        eager_side["peak_mem_added_bytes"] = torch.cuda.max_memory_allocated() - held
+        del eager_step
+        torch.cuda.empty_cache()
+
+        step_fn = trainer.make_train_step(cfg, 1.0, w, h)
+        one_step = stepper(step_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        one_step()  # warm-up, capture, replay
+        torch.cuda.synchronize()
         _build.reset_launch_counts()
         step_ms, syncs = [], []
         for _ in range(BATCH_STEPS):
@@ -1836,7 +2094,15 @@ def phase8(scene, budget):
         prof = profile_render(one_step, wall, reps=3, unit="step")
         if prof is None:
             fail(f"phase 8, B = {b}: the profiler saw no device activity")
-        del state
+        graphs[b] = {"capture_s": step_fn.captured.capture_s, "captured": {
+            "wall_ms": wall, "event_ms": event_ms,
+            "busy_ms": prof["device_busy_ms_per_step"],
+            "idle_share": prof["device_idle_share"],
+            "device_launches": prof["device_kernels_per_step"],
+            "kernel_launches": step_fn.captured.launches,
+            "peak_mem_added_bytes": peak - held},
+            "eager": eager_side}
+        del one_step, step_fn
         errs_1080, ctx = check_batched_kernels(scene, cams[:b], w, h, blk, m, False)
         kernel_ms = batched_kernel_ms(ctx, m, blk)
         del ctx
@@ -1876,6 +2142,7 @@ def phase8(scene, budget):
         "grad_rel_err_b4_vs_single_mean": grad_err, "phase_s": time.perf_counter() - t_phase,
     }
     print("phase8: " + json.dumps(summary), flush=True)
+    print("graph: " + json.dumps({"phase": "8 batched step", "by_views": graphs}), flush=True)
     return launches
 
 
@@ -2074,8 +2341,10 @@ def phase9_nccl(scene, budget):
             state = run(scene, adam, 0)
             torch.cuda.synchronize()
             launches[name] = dict(_build.launches)
-            first[name] = (float(state[2]["loss"]), state[1].mu,
-                           int(state[2]["num_dropped_pairs"]))
+            # a copy: the captured step updates its moments in place
+            mu = type(state[1].mu)(**{f.name: getattr(state[1].mu, f.name).clone()
+                                      for f in dataclasses.fields(state[1].mu)})
+            first[name] = (float(state[2]["loss"]), mu, int(state[2]["num_dropped_pairs"]))
             walls[name] = []
             for i in range(1, 6):
                 torch.cuda.synchronize()
@@ -2142,8 +2411,9 @@ def mesh_ranks(budget: int, out_path: str) -> int:
     cams = cams[:views]
     bgs = torch.zeros(views, 3, device="cuda")
     whole_tiling = TilingConfig(max_pairs=budget, block=blk)
+    # the reference of the sharded steps, eager: its job is values
     one = trainer.make_train_step(trainer.TrainConfig(tiling=whole_tiling, batch_views=views),
-                                  1.0, w, h)
+                                  1.0, w, h, capture=False)
     _, adam1, logs1 = one(scene, init_adam(scene.params), 0, stack_cameras(cams), targets, bgs)
     ref_loss, ref_mu = float(logs1["loss"]), adam1.mu
     with torch.no_grad():
@@ -2355,8 +2625,12 @@ def entry_kernel_errs() -> dict:
     )
     from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
 
+    # each path's work runs eagerly (capture=False): the CLIs replay captured
+    # graphs of the same functions, whose kernels launch only in the graph,
+    # but the wrappers' calls, and so the inputs to hold each launch's
+    # result against its plain version, are seen only when they run
     def bench_rung(w, h, n):
-        grad_fn, args, _, _ = bench.bench_problem(w, h, n)
+        grad_fn, args, _, _ = bench.bench_problem(w, h, n, capture=False)
         return lambda: grad_fn(*args)
 
     def batched():
@@ -2364,7 +2638,8 @@ def entry_kernel_errs() -> dict:
         cams, budget = bench_batched.ring_problem(w, h, n)
         rng = np.random.default_rng(0)
         for b in BATCHED_VIEWS:  # the CLI's target draws, in its order
-            step, scene, *inputs = bench_batched.batch_problem(cams, budget, b, w, h, n, rng)
+            step, scene, *inputs = bench_batched.batch_problem(cams, budget, b, w, h, n, rng,
+                                                               capture=False)
         return lambda: step(scene, init_adam(scene.params), 0, *inputs)
 
     makers = dict(zip(ENTRY_PATHS, (
@@ -2390,6 +2665,32 @@ def entry_kernel_errs() -> dict:
         if bad:
             fail(f"phase 10: {name}'s kernels against their plain versions: {bad}")
     return errs, seconds
+
+
+def bench_graph_line() -> dict:
+    """The bench headline's step in this process, captured (as ``bench.run``
+    times it) and eager: wall, CUDA events, and the device's busy time and
+    idle share by ``torch.profiler`` over the timed steps (a ``graph:``
+    line)."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.scripts import bench
+
+    sides, capture_s = {}, None
+    for name, capture in (("captured", True), ("eager", False)):
+        grad_fn, args, _, _ = bench.bench_problem(1920, 1080, 1_000_000, capture=capture)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        grad_fn(*args)
+        if capture:  # the graph's own buffers back, as bench.run passes them
+            args, capture_s = tuple(grad_fn.captured.inputs), grad_fn.captured.capture_s
+        sides[name] = graph_side(lambda: grad_fn(*args), 10, "step",
+                                 torch.cuda.max_memory_allocated() - held,
+                                 BENCH_STEP_LAUNCHES)
+        del grad_fn, args
+        torch.cuda.empty_cache()
+    return print_graph_line("10 bench headline", capture_s, sides["captured"], sides["eager"])
 
 
 def run_cli(module: str, *args, timeout: int):
@@ -2465,6 +2766,7 @@ def phase10() -> dict:
                                            or "skip 1x2: only 1 devices" not in lines):
         fail(f"phase 10: benchmark_scaling did not skip 1x2 on one card: {lines}")
 
+    headline_graph = bench_graph_line()
     errs, checks_s = entry_kernel_errs()
     # the headline's bound on the work its data needs: the roofline's bytes,
     # and K2's and K3's evaluations up to each tile's early stop (as phases
@@ -2487,6 +2789,9 @@ def phase10() -> dict:
             k: r[k] for k in ("step_ms", "ms_per_view", "device_ms", "speedup_per_view",
                               "peak_mem_bytes")} for r in rows},
         "scaling_s": scaling_s, "scaling_1x1": one, "scaling_skipped": scaling["skipped"],
+        "headline_busy_ms": {k: headline_graph[k]["busy_ms"] for k in ("captured", "eager")},
+        "headline_idle_share": {k: headline_graph[k]["idle_share"]
+                                for k in ("captured", "eager")},
     }
     print("phase10: " + json.dumps(summary), flush=True)
     return ex["launches"], {name: {path: e[name] for path, e in errs.items()}

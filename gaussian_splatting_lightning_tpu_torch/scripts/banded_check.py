@@ -113,13 +113,14 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
         np.array_equal(a, b) for a, b in zip(band_lists, full_lists))
     print(f"per-tile pair lists identical: {lists_equal}")
 
-    # the sharded step on a 1x1 mesh against the one-process step
+    # the sharded step on a 1x1 mesh against the one-process step, both
+    # eager: the check is of values, and the mesh step is not captured
     tcfg = TrainConfig(capacity=scene.capacity, adaptive_pairs=False, rasterizer="cuda",
                        tiling=cfg)
     target = torch.from_numpy(np.random.default_rng(0).uniform(
         size=(1, 3, h, w)).astype(np.float32)).to(dev)
     bgs = torch.zeros(1, 3, device=dev)
-    _, _, logs = make_train_step(tcfg, 2.0, w, h)(
+    _, _, logs = make_train_step(tcfg, 2.0, w, h, capture=False)(
         scene, init_adam(scene.params), 0, cam, target[0], bgs[0])
     ref_loss = float(logs["loss"])
     info = init_distributed(dev.type, rank=0, world_size=1,

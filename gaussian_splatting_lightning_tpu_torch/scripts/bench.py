@@ -7,9 +7,11 @@ exact host estimate plus 2%, rounded up to 8192) and timed work: the
 gradient of ``photometric_loss(image, target, 0.2)`` with respect to the
 five activated tensors through ``ops/rasterize.rasterize``, which launches
 K1-K4 once and K5 twice per step. The dropped-pair count comes back with the
-gradient. Timed by CUDA events and a host wall over ``iters`` steps after
-``warmup``; ``compile_s`` is the first call's seconds (the kernels' build or
-load plus one step).
+gradient. On the card the gradient replays a captured graph
+(``utils/graph.py``), as the JAX bench jits it. Timed by CUDA events and a
+host wall over ``iters`` steps after ``warmup``; ``compile_s`` is JAX's
+counterpart: the warm-up plus capture seconds (the kernels' build or load
+included), or off the card the first call's seconds.
 
 Rungs, in order; the first failure exits non-zero, and nothing is skipped
 or stepped down to another route or device:
@@ -82,13 +84,15 @@ def activated(scene):
             scene.get_rotation(), scene.get_features())
 
 
-def bench_problem(w: int, h: int, n: int, device="cuda"):
+def bench_problem(w: int, h: int, n: int, device="cuda", capture: bool = True):
     """The bench's timed work: ``(grad_fn, args, pairs, budget)``.
 
     ``grad_fn(*args)`` returns ``(loss, grads, dropped)``: the loss, its
     gradients with respect to the five activated tensors (means, opacity,
     scales, rotation, SH features) and the dropped-pair count, all tensors
-    (no host sync)."""
+    (no host sync). On the card it replays a captured graph
+    (``grad_fn.captured``; outputs hold until the next replay) unless
+    ``capture=False``."""
     import torch
 
     from gaussian_splatting_lightning_tpu_torch import interop
@@ -96,6 +100,7 @@ def bench_problem(w: int, h: int, n: int, device="cuda"):
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
     from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize
     from gaussian_splatting_lightning_tpu_torch.training.loss import photometric_loss
+    from gaussian_splatting_lightning_tpu_torch.utils import graph
 
     scene = interop.synthetic_scene(n, n, scale=0.008, device=device)
     cam = interop.camera(w, h, device=device)
@@ -109,7 +114,7 @@ def bench_problem(w: int, h: int, n: int, device="cuda"):
         np.random.default_rng(0).uniform(size=(3, h, w)).astype(np.float32)).to(dev)
     bg = torch.zeros(3, device=dev)
 
-    def grad_fn(*params):
+    def loss_grads(_static, *params):
         leaves = [p.detach().requires_grad_() for p in params]
         with torch.enable_grad():
             out, stats = rasterize(*leaves, cam, w, h, bg, 3, config=cfg)
@@ -117,6 +122,13 @@ def bench_problem(w: int, h: int, n: int, device="cuda"):
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), grads, stats["num_dropped_pairs"]
 
+    captured = graph.capture(loss_grads, name="bench_grad") if (
+        capture and dev.type == "cuda") else None
+
+    def grad_fn(*params):
+        return (captured or loss_grads)(None, *params)
+
+    grad_fn.captured = captured
     return grad_fn, activated(scene), pairs, budget
 
 
@@ -124,7 +136,10 @@ def run(w: int, h: int, n: int, iters: int = 10, warmup: int = 2, device="cuda")
     """Time the bench step. Returns ``step_s`` (host wall per step),
     ``device_ms`` (CUDA events per step; None off the card), ``compile_s``,
     ``pairs``, ``budget``, ``dropped`` (the first and the last timed step's
-    largest count) and ``launches`` (each kernel's launches per timed step)."""
+    largest count) and ``launches`` (each kernel's launches per timed step).
+    Captured, the steps after the first take the graph's own input buffers
+    back, so a step copies nothing in, as the jitted JAX bench passes its
+    arrays by reference."""
     import torch
 
     from gaussian_splatting_lightning_tpu_torch.ops import _build
@@ -141,6 +156,9 @@ def run(w: int, h: int, n: int, iters: int = 10, warmup: int = 2, device="cuda")
     sync()
     compile_s = time.perf_counter() - t0
     first_dropped = int(dropped)
+    if grad_fn.captured is not None:
+        compile_s = grad_fn.captured.capture_s
+        args = tuple(grad_fn.captured.inputs)
     for _ in range(warmup):
         grad_fn(*args)
     sync()

@@ -8,7 +8,9 @@ over the first four views), then for each B a fresh scene and Adam through
 wall per step, ms per view, views per second and the speed-up per view over
 the first row, beside the CUDA-event time per step (``device_ms``), the peak
 device memory over the timed steps, the first step's loss and the dropped
-pairs. The last line printed is the JSON summary.
+pairs. On the card each B's step replays a captured graph (the train step
+of ``make_train_step``); the first step of each B warms up and captures,
+outside the timed steps. The last line printed is the JSON summary.
 
 Usage: python -m gaussian_splatting_lightning_tpu_torch.scripts.bench_batched \
     [--width 512 --height 384 --n 100000 --iters 20 --batches 1 2 4 8] [--device cuda]
@@ -51,10 +53,11 @@ def ring_problem(w: int, h: int, n: int, device="cuda"):
     return cams, budget
 
 
-def batch_problem(cams, budget: int, b: int, w: int, h: int, n: int, rng):
+def batch_problem(cams, budget: int, b: int, w: int, h: int, n: int, rng,
+                  capture: bool = True):
     """The step at B views and its inputs, the target drawn from ``rng``:
     ``(step, scene, camera, image, background)``, a fresh scene each call (B
-    = 1 unstacked)."""
+    = 1 unstacked); the step captured on the card unless ``capture=False``."""
     import torch
 
     from gaussian_splatting_lightning_tpu_torch import interop
@@ -68,7 +71,7 @@ def batch_problem(cams, budget: int, b: int, w: int, h: int, n: int, rng):
     dev = cams[0].device
     cfg = TrainConfig(capacity=n, batch_views=b,
                       tiling=TilingConfig(max_pairs=budget, tile_capacity=4096))
-    step = make_train_step(cfg, 4.0, w, h)
+    step = make_train_step(cfg, 4.0, w, h, capture=capture)
     sel = [cams[i % len(cams)] for i in range(b)]
     img = torch.from_numpy(rng.uniform(size=(b, 3, h, w)).astype(np.float32)).to(dev)
     bg = torch.zeros((b, 3), device=dev)

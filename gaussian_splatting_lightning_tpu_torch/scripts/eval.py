@@ -7,7 +7,9 @@ and L1 of the render clipped to [0, 1], and LPIPS with ``--lpips-weights``
 ``scripts/export_lpips_weights.py``; ``ops/lpips.py``). Renders go through
 the CUDA kernels under a pair budget sized for the evaluated views
 (``--use-oracle``: the readable oracle rasterizer), SSIM through the blur
-kernel.
+kernel. On the card the render and the metrics replay captured graphs
+(``training/trainer.make_render``, ``utils/graph.py``), as the JAX CLI jits
+its render; the oracle and LPIPS run eagerly.
 
 Usage:
     python -m gaussian_splatting_lightning_tpu_torch.scripts.eval CKPT.ply \
@@ -66,7 +68,8 @@ def main(argv=None):
         rasterize_reference,
     )
     from gaussian_splatting_lightning_tpu_torch.ops.ssim import psnr, ssim
-    from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import make_render
+    from gaussian_splatting_lightning_tpu_torch.utils import graph
 
     scene = load_ply(args.checkpoint, device=args.device)
     lpips_weights = None
@@ -98,7 +101,20 @@ def main(argv=None):
     # size the static pair budget for THIS scene over the evaluated views
     tiling = None if args.use_oracle else TilingConfig(
         max_pairs=pair_budget(scene, cams, w, h, TilingConfig().resolve_block("cuda")))
-    sync = torch.cuda.synchronize if scene.device.type == "cuda" else (lambda: None)
+    cuda = scene.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    render = None if args.use_oracle else make_render(w, h, tiling)
+
+    def view_metrics(image, gt):
+        image = torch.clamp(image, 0.0, 1.0)
+        return image, psnr(image, gt), ssim(image, gt), torch.mean(torch.abs(image - gt))
+
+    if cuda:
+        captured = graph.capture(lambda _, image, gt: view_metrics(image, gt),
+                                 name="eval_metrics")
+        metrics = lambda image, gt: captured(None, image, gt)  # noqa: E731
+    else:
+        metrics = view_metrics
 
     rows = []
     for i, view, cam in zip(indices, views, cams):
@@ -112,7 +128,7 @@ def main(argv=None):
                 scene.active_sh_degree, alive=scene.alive,
             ).image
         else:
-            out, stats = render_scene(scene, cam, w, h, bg, tiling)
+            out, stats = render(scene, cam, bg)
             image = out.image
             dropped = int(stats["num_dropped_pairs"])
             if dropped:
@@ -121,14 +137,9 @@ def main(argv=None):
         sync()
         render_ms = (time.perf_counter() - t0) * 1e3
         gt = torch.as_tensor(view.image, dtype=torch.float32).to(scene.device)
-        image = torch.clamp(image, 0.0, 1.0)
-        row = dict(
-            view=view.name or str(i),
-            psnr=float(psnr(image, gt)),
-            ssim=float(ssim(image, gt)),
-            l1=float(torch.mean(torch.abs(image - gt))),
-            render_ms=render_ms,
-        )
+        image, v_psnr, v_ssim, v_l1 = metrics(image, gt)
+        row = dict(view=view.name or str(i), psnr=float(v_psnr), ssim=float(v_ssim),
+                   l1=float(v_l1), render_ms=render_ms)
         if lpips_weights is not None:
             sync()
             t0 = time.perf_counter()

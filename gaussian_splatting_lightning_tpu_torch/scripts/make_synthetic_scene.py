@@ -10,7 +10,10 @@ densification from a sparse noisy SfM-like point cloud. Three GT styles:
 ``clusters`` (volumetric random splats), ``textured`` (opaque
 procedural-texture surfaces) and ``hard`` (sub-splat texture detail,
 view-dependent colour, thin structures). The pair budget starts at 2^20 and
-doubles, re-rendering the view, whenever a view drops pairs.
+doubles, re-rendering the view, whenever a view drops pairs. On the card
+the render replays a captured graph per budget
+(``training/trainer.make_render``), as the JAX generator jits it once per
+budget.
 
 Usage:
     python -m gaussian_splatting_lightning_tpu_torch.scripts.make_synthetic_scene \
@@ -469,7 +472,7 @@ def main(argv=None):
     from gaussian_splatting_lightning_tpu_torch.data.image_io import write_image
     from gaussian_splatting_lightning_tpu_torch.device import resolve_device
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
-    from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import make_render
 
     device = resolve_device(args.device)
     out = Path(args.out)
@@ -493,6 +496,7 @@ def main(argv=None):
     max_pairs = 1 << 20
     rng = np.random.default_rng(args.seed + 1)
     bg = torch.zeros(3, device=device)
+    render = make_render(w, h, TilingConfig(max_pairs=max_pairs))
     pose_kw = {}
     if args.style in ("textured", "hard"):
         # elevated ring looking at the ground plane: the textured surfaces
@@ -503,11 +507,12 @@ def main(argv=None):
         cam = make_camera(np.concatenate([R, t[:, None]], 1), fx, fy, w, h, device=device)
         t0 = time.perf_counter()
         while True:  # adaptive budget: re-render on overflow
-            out_r, stats = render_scene(gt, cam, w, h, bg, TilingConfig(max_pairs=max_pairs))
+            out_r, stats = render(gt, cam, bg)
             n_dropped = int(stats["num_dropped_pairs"])  # waits for the render
             if n_dropped == 0:
                 break
             max_pairs *= 2
+            render = make_render(w, h, TilingConfig(max_pairs=max_pairs))
             print(f"  overflow at view {i}: growing pair budget to {max_pairs}")
         render_ms.append((time.perf_counter() - t0) * 1e3)
         dropped.append(n_dropped)

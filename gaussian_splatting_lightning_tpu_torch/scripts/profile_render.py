@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``scripts/profile_render.py``, on
 trace): renders the bench fixture's synthetic scene through the chosen route
 (optionally with the backward of the training loss) and ranks the traced
 ops by their total self time on the card, or on the host with
-``--device cpu``.
+``--device cpu``. On the card the kernel route's render (or its gradient
+under ``--grad``) replays a captured graph (``utils/graph.py``), as the JAX
+script jits either; the tiled route runs eagerly.
 
 Usage:
     python -m gaussian_splatting_lightning_tpu_torch.scripts.profile_render \
@@ -47,6 +49,7 @@ def main(argv=None):
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
     from gaussian_splatting_lightning_tpu_torch.training.loss import photometric_loss
     from gaussian_splatting_lightning_tpu_torch.training.trainer import resolve_rasterizer
+    from gaussian_splatting_lightning_tpu_torch.utils import graph
     from gaussian_splatting_lightning_tpu_torch.utils.runtime import trace
 
     w, h, n = args.width, args.height, args.splats
@@ -57,20 +60,26 @@ def main(argv=None):
     cfg = TilingConfig(max_pairs=args.max_pairs)
     target = torch.zeros((3, h, w), device=dev)
     bg = torch.zeros(3, device=dev)
-    xs = [t.detach().requires_grad_(args.grad) for t in (
-        scene.params.xyz, scene.get_opacity(), scene.get_scales(),
-        scene.get_rotation(), scene.get_features())]
+    xs = (scene.params.xyz, scene.get_opacity(), scene.get_scales(),
+          scene.get_rotation(), scene.get_features())
 
-    def run():
+    def loss_or_grad(_static, *params):
+        leaves = [t.detach().requires_grad_(args.grad) for t in params]
         with torch.set_grad_enabled(args.grad):
-            out, _ = raster(*xs, cam, w, h, bg, scene.active_sh_degree, config=cfg)
+            out, _ = raster(*leaves, cam, w, h, bg, scene.active_sh_degree, config=cfg)
             loss, _ = photometric_loss(out.image, target, 0.2)
             if args.grad:
-                return torch.autograd.grad(loss, xs)
+                return torch.autograd.grad(loss, leaves)
             return loss
 
     cuda = dev.type == "cuda"
-    run()  # builds the kernels, warms the allocator
+    fn = graph.capture(loss_or_grad, name="profile_render") if (
+        cuda and args.impl == "cuda") else loss_or_grad
+
+    def run():
+        return fn(None, *xs)
+
+    run()  # builds the kernels, warms the allocator; on the card it captures
     if cuda:
         torch.cuda.synchronize()
     trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="gs_profile_")

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``scripts/render.py`` (itself mirroring the
 reference's ``scripts/render_trained_image.py``): load a checkpoint PLY, pick
 a COLMAP (or Blender) frame, render through the CUDA kernels (or, with
 ``--use-oracle``, the readable oracle rasterizer), report the render time,
-save [GT | render | depth].
+save [GT | render | depth]. On the card the render replays a captured graph
+(``training/trainer.make_render``), as the JAX CLI jits it; its first call
+warms up and captures.
 
 Usage:
     python -m gaussian_splatting_lightning_tpu_torch.scripts.render CKPT.ply \
@@ -52,7 +54,7 @@ def main(argv=None):
     from gaussian_splatting_lightning_tpu_torch.ops.rasterize_reference import (
         rasterize_reference,
     )
-    from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import make_render
 
     scene = load_ply(args.checkpoint, device=args.device)
     print(f"loaded {scene.n_alive()} splats, SH degree {scene.active_sh_degree}")
@@ -88,7 +90,8 @@ def main(argv=None):
     else:
         tiling = TilingConfig(max_pairs=pair_budget(scene, cam, w, h,
                                                     TilingConfig().resolve_block("cuda")))
-        out, stats = render_scene(scene, cam, w, h, bg, tiling)  # builds the kernels
+        render = make_render(w, h, tiling)
+        out, stats = render(scene, cam, bg)  # builds the kernels, captures
         dropped = int(stats["num_dropped_pairs"])
         if dropped:
             print(f"WARNING: dropped {dropped} splat-tile pairs "
@@ -96,7 +99,7 @@ def main(argv=None):
         sync = torch.cuda.synchronize if scene.device.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
-        out, _ = render_scene(scene, cam, w, h, bg, tiling)
+        out, _ = render(scene, cam, bg)
         sync()
         elapsed = time.perf_counter() - t0
         print(f"render time: {elapsed * 1e3:.2f} ms ({w}x{h}, {scene.device})")

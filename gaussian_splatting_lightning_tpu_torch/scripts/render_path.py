@@ -5,7 +5,9 @@ the dataset's camera poses (COLMAP or Blender), the path interpolates
 between them (slerp rotation, Catmull-Rom position), frames render through
 the CUDA kernels under one pair budget sized over the keyframes with 1.5x
 headroom, and are written as PNGs plus an optional looping GIF (Pillow).
-Each frame's render time is taken by CUDA events and by the host clock.
+Each frame's render time is taken by CUDA events and by the host clock. On
+the card every frame replays one captured graph
+(``training/trainer.make_render``), as the JAX CLI jits its render.
 
 Usage:
     python -m gaussian_splatting_lightning_tpu_torch.scripts.render_path CKPT.ply \
@@ -128,7 +130,7 @@ def main(argv=None):
     from gaussian_splatting_lightning_tpu_torch.models import load_ply
     from gaussian_splatting_lightning_tpu_torch.ops.budget import pair_budget
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
-    from gaussian_splatting_lightning_tpu_torch.training.trainer import render_scene
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import make_render
     from gaussian_splatting_lightning_tpu_torch.utils.runtime import StepTimer
 
     scene = load_ply(args.checkpoint, device=args.device)
@@ -161,6 +163,7 @@ def main(argv=None):
     # pair-count variation along the path
     tiling = TilingConfig(max_pairs=pair_budget(
         scene, key_cams, w, h, TilingConfig().resolve_block("cuda"), headroom=1.5))
+    render = make_render(w, h, tiling)
 
     cuda = dev.type == "cuda"
     timer = StepTimer(skip_first=0)
@@ -178,7 +181,7 @@ def main(argv=None):
         with timer:
             if cuda:
                 start.record()
-            out, stats = render_scene(scene, cam, w, h, bg, tiling)
+            out, stats = render(scene, cam, bg)
             if cuda:
                 end.record()
                 torch.cuda.synchronize()

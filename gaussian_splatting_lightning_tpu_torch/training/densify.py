@@ -62,7 +62,20 @@ def accumulate_stats(
     gated on radii > 0. A leading view axis (the view-batched step) reduces
     as B reference steps in a row would: the max of the radii, the sum of
     the per-view gradient norms, and the count raised by the number of views
-    that saw the splat."""
+    that saw the splat. Returns a scene with three new statistics."""
+    return _accumulate(scene, radii, screenspace_grad, None)
+
+
+def accumulate_stats_(scene: GaussianScene, radii: torch.Tensor,
+                      screenspace_grad: torch.Tensor) -> GaussianScene:
+    """``accumulate_stats`` in place: the statistics written into the scene's
+    own tensors (the donated step's form); the same bits."""
+    return _accumulate(scene, radii, screenspace_grad, scene)
+
+
+def _accumulate(scene, radii, screenspace_grad, out):
+    """The statistics as new tensors (``out`` None) or written into
+    ``out``'s: the same operations either way."""
     seen = radii > 0
     norms = torch.linalg.vector_norm(screenspace_grad[..., :2], dim=-1)
     contrib = torch.where(seen, norms, 0.0)
@@ -73,12 +86,15 @@ def accumulate_stats(
         seen = radii > 0
     else:
         count = seen.to(scene.grad_count.dtype)
+    def dst(name):
+        return None if out is None else getattr(out, name)
+
     return dataclasses.replace(
         scene,
-        max_radii2d=torch.where(
-            seen, torch.maximum(scene.max_radii2d, radii), scene.max_radii2d),
-        grad_accum=scene.grad_accum + contrib,
-        grad_count=scene.grad_count + count,
+        max_radii2d=torch.where(seen, torch.maximum(scene.max_radii2d, radii),
+                                scene.max_radii2d, out=dst("max_radii2d")),
+        grad_accum=torch.add(scene.grad_accum, contrib, out=dst("grad_accum")),
+        grad_count=torch.add(scene.grad_count, count, out=dst("grad_count")),
     )
 
 

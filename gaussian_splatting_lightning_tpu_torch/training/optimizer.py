@@ -9,7 +9,10 @@ p -= lr (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps), with b1^t taken in
 float32 and the reference's eps = 1e-15. It is not ``torch.optim.Adam``,
 which orders these operations differently and has no visibility mask.
 The learning rate of xyz follows the warmup-exp-decay schedule scaled by the
-scene's spatial extent; the other five groups are constant.
+scene's spatial extent; the other five groups are constant. The rates and
+the bias corrections reach the update as one small device tensor
+(``adam_scalars``), so the in-place form ``adam_update_`` runs inside a
+captured step (``utils/graph.py``) with each step's values.
 """
 
 from __future__ import annotations
@@ -81,6 +84,53 @@ def init_adam(params: GaussianParams) -> AdamState:
     return AdamState(count=0, mu=zeros(), nu=zeros())
 
 
+def adam_scalars(schedules: Dict[str, Callable], cfg: OptimizerConfig, step,
+                 count: int) -> list:
+    """The step's host scalars, in float32 values: the six groups' learning
+    rates at ``step`` (``PARAM_NAMES`` order), then the bias corrections
+    1 - b1^t and 1 - b2^t of Adam step ``count``, with b^t taken in float32."""
+    t = torch.tensor(float(count), dtype=torch.float32)
+    bc1 = 1.0 - torch.tensor(cfg.beta1, dtype=torch.float32) ** t
+    bc2 = 1.0 - torch.tensor(cfg.beta2, dtype=torch.float32) ** t
+    return [schedules[name](step) for name in PARAM_NAMES] + [float(bc1), float(bc2)]
+
+
+def scalars_tensor(values, device) -> torch.Tensor:
+    """``values`` as a float32 tensor on ``device``; to a card through pinned
+    memory without a host sync."""
+    host = torch.tensor(values, dtype=torch.float32)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _adam(params, grads, state, scalars, cfg, visible, out):
+    """The update of every group, ``out`` None (new tensors) or
+    (params, state) to write into: the same operations either way, so the
+    two give the same bits. A sparse update writes its masked results."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    bc1, bc2 = scalars[len(PARAM_NAMES)], scalars[len(PARAM_NAMES) + 1]
+    dense = visible is None
+    new = {"p": {}, "m": {}, "v": {}}
+    for i, name in enumerate(PARAM_NAMES):
+        p, g, m, v = (getattr(x, name) for x in (params, grads, state.mu, state.nu))
+        p_out, m_out, v_out = (None, None, None) if out is None else (
+            getattr(x, name) for x in (out[0], out[1].mu, out[1].nu))
+        m_new = torch.add(b1 * m, (1.0 - b1) * g, out=m_out if dense else None)
+        v_new = torch.add(b2 * v, (1.0 - b2) * g * g, out=v_out if dense else None)
+        update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+        if dense:
+            p_new = torch.sub(p, scalars[i] * update, out=p_out)
+        else:
+            vis = visible.reshape((-1,) + (1,) * (p.dim() - 1))
+            p_new = torch.where(vis, p - scalars[i] * update, p, out=p_out)
+            m_new = torch.where(vis, m_new, m, out=m_out)
+            v_new = torch.where(vis, v_new, v, out=v_out)
+        new["p"][name], new["m"][name], new["v"][name] = p_new, m_new, v_new
+    return (GaussianParams(**new["p"]), GaussianParams(**new["m"]),
+            GaussianParams(**new["v"]))
+
+
 @torch.no_grad()
 def adam_update(
     params: GaussianParams,
@@ -98,29 +148,26 @@ def adam_update(
     ``visible`` (C,) bool gives sparse-Adam semantics: rows not rendered
     this step keep their parameters and moments.
     """
-    b1, b2 = cfg.beta1, cfg.beta2
     count = state.count + 1
-    t = torch.tensor(float(count), dtype=torch.float32)
-    bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** t
-    bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** t
-    new_params, new_mu, new_nu = {}, {}, {}
-    for name in PARAM_NAMES:
-        p = getattr(params, name)
-        g = getattr(grads, name)
-        m = getattr(state.mu, name)
-        v = getattr(state.nu, name)
-        m_new = b1 * m + (1.0 - b1) * g
-        v_new = b2 * v + (1.0 - b2) * g * g
-        lr = schedules[name](step)
-        update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
-        p_new = p - lr * update
-        if visible is not None:
-            vis = visible.reshape((-1,) + (1,) * (p.dim() - 1))
-            p_new = torch.where(vis, p_new, p)
-            m_new = torch.where(vis, m_new, m)
-            v_new = torch.where(vis, v_new, v)
-        new_params[name] = p_new
-        new_mu[name] = m_new
-        new_nu[name] = v_new
-    return GaussianParams(**new_params), AdamState(
-        count=count, mu=GaussianParams(**new_mu), nu=GaussianParams(**new_nu))
+    scalars = scalars_tensor(adam_scalars(schedules, cfg, step, count), params.xyz.device)
+    new_params, mu, nu = _adam(params, grads, state, scalars, cfg, visible, None)
+    return new_params, AdamState(count=count, mu=mu, nu=nu)
+
+
+@torch.no_grad()
+def adam_update_(
+    params: GaussianParams,
+    grads: GaussianParams,
+    state: AdamState,
+    scalars: torch.Tensor,
+    cfg: OptimizerConfig,
+    visible=None,
+) -> AdamState:
+    """``adam_update`` in place, the counterpart of the JAX step's donated
+    update: writes the new parameters and moments into ``params``' and
+    ``state``'s own tensors and returns the state with its count raised.
+    ``scalars`` (8,) is ``adam_scalars`` of this step on the parameters'
+    device, an input rather than constants, so a captured step replays
+    with each step's values. The same bits as ``adam_update``."""
+    _adam(params, grads, state, scalars, cfg, visible, (params, state))
+    return AdamState(count=state.count + 1, mu=state.mu, nu=state.nu)

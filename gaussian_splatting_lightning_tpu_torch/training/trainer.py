@@ -2,12 +2,16 @@
 
 Counterpart of ``gaussian_splatting_lightning_tpu/training/trainer.py`` on
 one device. One ``train_step`` is render -> loss -> backward -> Adam ->
-densification statistics, eager PyTorch around the kernels (K1 and K2 in the
+densification statistics, PyTorch around the kernels (K1 and K2 in the
 render, K5 in the loss and its backward, K3 and K4 in the render's
-backward). With ``batch_views`` B > 1 the step takes B views stacked along a
-leading axis and renders them in one pass (each kernel launched once for all
-B, as ``vmap`` gives the JAX kernels a batch grid axis); the loss is the
-mean over views. The events that change the scene (densify/prune,
+backward). On the card the step, the eval step and the serving render
+(``make_render``) each replay a captured CUDA graph (``utils/graph.py``),
+the counterpart of the JAX package's ``jax.jit``; on the CPU, with
+``capture=False`` and on the ``plain`` and ``xla`` routes they run eagerly.
+With ``batch_views`` B > 1 the step takes B views stacked along a leading
+axis and renders them in one pass (each kernel launched once for all B, as
+``vmap`` gives the JAX kernels a batch grid axis); the loss is the mean over
+views. The events that change the scene (densify/prune,
 opacity reset, SH warm-up) run between steps on the cadences of the
 reference's ``on_train_batch_start`` (gs_lightning_module.py:144-161):
 
@@ -58,6 +62,7 @@ from gaussian_splatting_lightning_tpu_torch.ops.rasterize_tiled import rasterize
 from gaussian_splatting_lightning_tpu_torch.training.densify import (
     DensifyConfig,
     accumulate_stats,
+    accumulate_stats_,
     densify_and_prune,
 )
 from gaussian_splatting_lightning_tpu_torch.training.exposure import (
@@ -73,10 +78,14 @@ from gaussian_splatting_lightning_tpu_torch.training.loss import (
 from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
     AdamState,
     OptimizerConfig,
+    adam_scalars,
     adam_update,
+    adam_update_,
     init_adam,
     make_lr_schedules,
+    scalars_tensor,
 )
+from gaussian_splatting_lightning_tpu_torch.utils import graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +194,66 @@ def _render_each(live, camera, width, height, background, cfg, offset, rasterize
                  "num_pairs": per["num_pairs"].max()}
 
 
+def _scene_tensors(scene: GaussianScene, stats: bool = True) -> list:
+    """A scene's tensors in capture order: the six parameters, ``alive`` and,
+    with ``stats``, the three densification statistics."""
+    tensors = [getattr(scene.params, k) for k in PARAM_NAMES] + [scene.alive]
+    if stats:
+        tensors += [scene.max_radii2d, scene.grad_accum, scene.grad_count]
+    return tensors
+
+
+def _scene_of(tensors, active_sh_degree: int) -> GaussianScene:
+    """The scene whose tensors are ``tensors`` (``_scene_tensors`` order; the
+    statistics None when absent)."""
+    stats = list(tensors[len(PARAM_NAMES) + 1:]) or [None] * 3
+    return GaussianScene(GaussianParams(*tensors[:len(PARAM_NAMES)]),
+                         tensors[len(PARAM_NAMES)], *stats, active_sh_degree)
+
+
+def _camera_tensors(camera: Camera) -> list:
+    return [getattr(camera, f.name) for f in dataclasses.fields(Camera)]
+
+
+N_SCENE = len(PARAM_NAMES) + 4  # parameters, alive, three statistics
+N_CAMERA = len(dataclasses.fields(Camera))
+
+
+def make_render(width: int, height: int, tiling: TilingConfig = TilingConfig(),
+                antialias: bool = False, capture: bool = True):
+    """The serving render, the counterpart of the JAX CLIs'
+    ``jax.jit(render_scene)``: ``render(scene, camera, background)`` ->
+    ``(RenderOutput, stats)`` without autograd. On CUDA it replays a
+    captured graph (``utils/graph.py``) per SH degree and shape, the camera's
+    tensors and the background its inputs; its outputs hold until the next
+    replay of any graph. ``capture=False``, or a CPU scene, renders
+    eagerly."""
+
+    @torch.no_grad()
+    def render_eager(scene, camera, background):
+        return render_scene(scene, camera, width, height, background, tiling, antialias)
+
+    if not capture:
+        return render_eager
+
+    def body(static, *t):
+        scene = _scene_of(t[:len(PARAM_NAMES) + 1], static[-1])
+        return render_eager(scene, Camera(*t[-N_CAMERA - 1:-1]), t[-1])
+
+    graphed = graph.capture(body, name="render")
+
+    def render(scene, camera, background):
+        if scene.device.type != "cuda":
+            return render_eager(scene, camera, background)
+        out, stats = graphed((width, height, tiling, antialias, scene.active_sh_degree),
+                             *_scene_tensors(scene, stats=False), *_camera_tensors(camera),
+                             background)
+        return out, dict(stats)
+
+    render.captured = graphed
+    return render
+
+
 def step_gradients(cfg: TrainConfig, scene: GaussianScene, camera: Camera,
                    width: int, height: int, image, background, exp_mat=None,
                    depth_target=None):
@@ -250,7 +319,23 @@ def step_gradients(cfg: TrainConfig, scene: GaussianScene, camera: Camera,
     return param_grads, screen_grads, exp_grad, out.radii.detach(), logs, stats
 
 
-def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: int):
+def _step_logs(logs: dict, scene: GaussianScene, stats: dict) -> dict:
+    """The step's logs under the JAX step's keys."""
+    logs = dict(logs, n_gaussians=scene.alive.sum())
+    for k in ("num_dropped_pairs", "num_tile_overflow", "num_pairs"):
+        logs[k] = stats[k]
+    return logs
+
+
+def _visible(cfg: TrainConfig, radii):
+    """Sparse Adam's rows: the splats any view saw (None: every row)."""
+    if not cfg.sparse_adam:
+        return None
+    return (radii > 0) if radii.dim() == 1 else torch.any(radii > 0, dim=0)
+
+
+def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: int,
+                    capture: bool = True):
     """Build the train step for a fixed image size:
 
     ``train_step(scene, adam, step, camera, image, background, exp_mat=None,
@@ -259,42 +344,128 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
     given. Logs hold 0-dim tensors under the JAX step's keys. With
     ``cfg.batch_views`` B > 1 the inputs are stacks of B views
     (``step_gradients``) and the stats reduce over the views as the JAX
-    batched step's do: dropped pairs summed, pairs and overflow maxed."""
+    batched step's do: dropped pairs summed, pairs and overflow maxed.
+
+    On CUDA the kernel route (``rasterizer: cuda``) replays a captured graph
+    of the whole step (``utils/graph.py``), the counterpart of the JAX
+    step's ``jax.jit(..., donate_argnums=(0, 1))``: the step's key is the
+    config, the image size, the active SH degree, whether ``exp_mat`` and
+    ``depth_target`` are given and the inputs' shapes, so a new budget or SH
+    degree captures anew. The scene and Adam are donated: the returned ones
+    are the graph's own buffers, updated in place by every replay (passing
+    them back copies nothing; another scene is copied in), and the logs and
+    ``exp_grad`` hold until the next replay of any graph. The learning
+    rates and bias corrections reach the graph as a device input
+    (``adam_scalars``), computed on the host per step as the eager step
+    does. ``capture=False``, a CPU scene, and the ``plain`` and ``xla``
+    routes run eagerly, out of place. ``train_step.key(...)`` (same
+    arguments) gives the capture key in pure Python, ``train_step.captured``
+    the ``graph.Captured`` (None when the step never captures), and
+    ``train_step.in_place(...)`` the donating step run eagerly on any
+    device: the graph's body, updating the caller's tensors in place."""
     schedules = make_lr_schedules(cfg.optimizer, spatial_scale)
     resolve_rasterizer(cfg.rasterizer)  # refuse an unknown name up front
+    capture = capture and cfg.rasterizer == "cuda"
+    n_scalars = len(PARAM_NAMES) + 2
 
-    def train_step(scene: GaussianScene, adam, step, camera: Camera, image,
-                   background, exp_mat=None, depth_target=None):
+    def eager(scene: GaussianScene, adam, step, camera: Camera, image,
+              background, exp_mat=None, depth_target=None):
         param_grads, screen_grads, exp_grad, radii, logs, stats = step_gradients(
             cfg, scene, camera, width, height, image, background, exp_mat,
             depth_target)
-        visible = None
-        if cfg.sparse_adam:  # a splat any view saw
-            visible = (radii > 0) if radii.dim() == 1 else torch.any(radii > 0, dim=0)
         new_params, adam = adam_update(scene.params, param_grads, adam, schedules,
-                                       cfg.optimizer, step, visible=visible)
+                                       cfg.optimizer, step, visible=_visible(cfg, radii))
         scene = dataclasses.replace(scene, params=new_params)
         # densification signal for the next batch start
         # (gs_lightning_module.py:175-178)
         scene = accumulate_stats(scene, radii, screen_grads)
-        logs["n_gaussians"] = scene.alive.sum()
-        for k in ("num_dropped_pairs", "num_tile_overflow", "num_pairs"):
-            logs[k] = stats[k]
+        logs = _step_logs(logs, scene, stats)
         if exp_mat is not None:
             return scene, adam, logs, exp_grad
         return scene, adam, logs
 
+    def static_of(scene, exp_mat, depth_target):
+        return (cfg, width, height, scene.active_sh_degree, exp_mat is not None,
+                depth_target is not None)
+
+    def inputs_of(scene, adam, scalars, camera, image, background, exp_mat, depth_target):
+        return (_scene_tensors(scene) + [getattr(adam.mu, k) for k in PARAM_NAMES]
+                + [getattr(adam.nu, k) for k in PARAM_NAMES] + [scalars]
+                + _camera_tensors(camera) + [image, background]
+                + [x for x in (exp_mat, depth_target) if x is not None])
+
+    def body(static, *t):
+        *_, sh_degree, has_exp, has_depth = static
+        n = len(PARAM_NAMES)
+        scene = _scene_of(t[:N_SCENE], sh_degree)
+        adam = AdamState(0, GaussianParams(*t[N_SCENE:N_SCENE + n]),
+                         GaussianParams(*t[N_SCENE + n:N_SCENE + 2 * n]))
+        at = N_SCENE + 2 * n
+        scalars, camera = t[at], Camera(*t[at + 1:at + 1 + N_CAMERA])
+        image, background, *rest = t[at + 1 + N_CAMERA:]
+        exp_mat = rest.pop(0) if has_exp else None
+        depth_target = rest.pop(0) if has_depth else None
+        param_grads, screen_grads, exp_grad, radii, logs, stats = step_gradients(
+            cfg, scene, camera, width, height, image, background, exp_mat,
+            depth_target)
+        adam_update_(scene.params, param_grads, adam, scalars, cfg.optimizer,
+                     visible=_visible(cfg, radii))
+        accumulate_stats_(scene, radii, screen_grads)
+        return _step_logs(logs, scene, stats), exp_grad
+
+    graphed = graph.capture(body, name="train_step") if capture else None
+
+    def in_place(scene: GaussianScene, adam, step, camera: Camera, image, background,
+                 exp_mat=None, depth_target=None, run=body):
+        """The donating step: ``run`` (the step's body eagerly, or its
+        captured graph) updates the scene's and Adam's tensors in place (the
+        graph's buffers when captured) and the results are built on them."""
+        scalars = scalars_tensor(adam_scalars(schedules, cfg.optimizer, step, adam.count + 1),
+                                 scene.device)
+        inputs = inputs_of(scene, adam, scalars, camera, image, background, exp_mat,
+                           depth_target)
+        logs, exp_grad = run(static_of(scene, exp_mat, depth_target), *inputs)
+        buf = graphed.inputs if run is graphed else inputs
+        n = len(PARAM_NAMES)
+        scene = _scene_of(buf[:N_SCENE], scene.active_sh_degree)
+        adam = AdamState(adam.count + 1, GaussianParams(*buf[N_SCENE:N_SCENE + n]),
+                         GaussianParams(*buf[N_SCENE + n:N_SCENE + 2 * n]))
+        if exp_mat is not None:
+            return scene, adam, dict(logs), exp_grad
+        return scene, adam, dict(logs)
+
+    def train_step(scene: GaussianScene, adam, step, camera: Camera, image,
+                   background, exp_mat=None, depth_target=None):
+        if graphed is None or scene.device.type != "cuda":
+            return eager(scene, adam, step, camera, image, background, exp_mat,
+                         depth_target)
+        return in_place(scene, adam, step, camera, image, background, exp_mat,
+                        depth_target, run=graphed)
+
+    def key(scene, adam, step, camera, image, background, exp_mat=None, depth_target=None):
+        del step
+        return graph.graph_key(static_of(scene, exp_mat, depth_target), inputs_of(
+            scene, adam, torch.empty(n_scalars), camera, image, background, exp_mat,
+            depth_target))
+
+    train_step.key = key
+    train_step.captured = graphed
+    train_step.in_place = in_place
     return train_step
 
 
-def make_eval_step(cfg: TrainConfig, width: int, height: int):
+def make_eval_step(cfg: TrainConfig, width: int, height: int, capture: bool = True):
     """``eval_step(scene, camera, image, background)`` ->
-    ``(image, depth, logs)`` with the pair-drop counts in the logs."""
+    ``(image, depth, logs)`` with the pair-drop counts in the logs. On CUDA
+    the kernel route replays a captured graph (``make_render``'s inputs and
+    the target image); its outputs hold until the next replay of any graph.
+    ``capture=False``, a CPU scene, and the ``plain`` and ``xla`` routes run
+    eagerly."""
     rasterize_fn = resolve_rasterizer(cfg.rasterizer)
     plain = cfg.rasterizer == "plain"
 
     @torch.no_grad()
-    def eval_step(scene, camera, image, background):
+    def eager(scene, camera, image, background):
         out, stats = render_scene(scene, camera, width, height, background,
                                   cfg.tiling, cfg.antialias, rasterize_fn=rasterize_fn)
         _, logs = photometric_loss(out.image, image, cfg.w_ssim, plain)
@@ -302,6 +473,24 @@ def make_eval_step(cfg: TrainConfig, width: int, height: int):
         logs["num_tile_overflow"] = stats["num_tile_overflow"]
         return out.image, out.depth, logs
 
+    if not capture or cfg.rasterizer != "cuda":
+        return eager
+
+    def body(static, *t):
+        scene = _scene_of(t[:len(PARAM_NAMES) + 1], static[-1])
+        return eager(scene, Camera(*t[-N_CAMERA - 2:-2]), t[-2], t[-1])
+
+    graphed = graph.capture(body, name="eval_step")
+
+    def eval_step(scene, camera, image, background):
+        if scene.device.type != "cuda":
+            return eager(scene, camera, image, background)
+        out, depth, logs = graphed((cfg, width, height, scene.active_sh_degree),
+                                   *_scene_tensors(scene, stats=False),
+                                   *_camera_tensors(camera), image, background)
+        return out, depth, dict(logs)
+
+    eval_step.captured = graphed
     return eval_step
 
 
@@ -350,6 +539,15 @@ class Trainer:
     alone writes logs, PLYs and checkpoints; a checkpoint holds the whole
     Adam state, so a mesh run resumes in one process and the other way
     round. Validation renders the replicated scene on each rank, unsharded.
+
+    In one process on the card the step is the captured one
+    (``make_train_step``): after a step ``self.scene`` and ``self.adam`` are
+    the graph's own buffers. The events (densify, opacity reset, SH degree,
+    the NaN rollback, ``restore_checkpoint``) stay eager and give new
+    tensors, which the next step copies into those buffers; an SH degree
+    step or a budget growth changes the step's key and captures anew, where
+    the JAX trainer recompiles on a budget growth. Checkpoints read the
+    buffers. A mesh step runs eagerly.
     """
 
     def __init__(

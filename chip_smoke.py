@@ -90,10 +90,17 @@ Phases (any failure exits non-zero):
      of B = 1's. A ``phase8:`` line holds the numbers. The timed steps are
      replays of the captured step; the eager step is timed beside them.
   9. the mesh (``parallel/``) at full width. (a) A 1x1 mesh on NCCL in this
-     process: the sharded step on phase 5's bench view against phase 5's
-     step (loss within 1e-5, Adam's first moments, (1 - beta1) times the
-     gradients, within 1e-4 of each column's largest |value|), both timed
-     (``mesh_1x1:``). (b) Four ranks sharing the card over gloo under
+     process: the captured sharded step (what ``Trainer(mesh=…)`` runs), the
+     eager one (``capture=False``) and the captured one-process step,
+     TRAIN_STEPS + 1 steps each from the same start on phase 5's bench view:
+     the captured mesh step equal to the eager one bit for bit (every loss,
+     the parameters, moments and statistics after the last step), one
+     capture, K1-K4 once and K5 twice a replay, and within the mesh limits
+     of the one-process step (first loss within 1e-5, Adam's first moments
+     after step 0, (1 - beta1) times the gradients, within 1e-4 of each
+     column's largest |value|); each step timed (``mesh_1x1:``), then a
+     ``graph:`` line of the captured mesh step against the eager one. (b)
+     Four ranks sharing the card over gloo under
      ``torch.distributed.run`` (this script with ``--mesh-ranks``), meshes
      (1, 4) and (2, 2) on phase 8's first two views: each rank's sharded
      step against the one-process step on the same global batch (the same
@@ -109,7 +116,15 @@ Phases (any failure exits non-zero):
      mesh_tile=2`` at phase 6's operating point cut to 60 steps (one
      densify event at threshold 0) against the one-process CLI at
      ``batch_views=2``: logged losses within 2e-4, the same alive counts
-     (``mesh_cli_row:``).
+     (``mesh_cli_row:``). (d) The train CLI under torchrun with one rank,
+     ``mesh_view=1, mesh_tile=1`` (a 1x1 NCCL mesh: the captured sharded
+     step) with ``batch_views=2`` and exposure at (c)'s operating point,
+     this script's ``--mesh-cli`` running the CLI's ``main`` on the rank
+     with every graph's captures recorded (``record_loop``), against the
+     one-process CLI with the same settings: logged losses within 2e-4, the
+     same alive counts, 0 dropped pairs, the step and the exposure update
+     captured at step 0, the steps' wall over a synced window
+     (``mesh_nccl_cli_row:``).
   10. the measurement entry points, each a subprocess through its module
      entry (``python -m ...scripts.<name>``): the bench (its small and
      headline rungs, parity against the tiled route and the banded check;
@@ -153,8 +168,9 @@ phase 7. The card's name and power limit come two lines before the last, the
 kernels' JSON record (``max_abs_err`` is the largest |kernel - plain| over
 the kernel's outputs; K1's outputs are integers; ``serve_launches`` holds
 each phase-7 CLI's launches, ``batched_launches`` phase 8's per B,
-``mesh_launches`` phase 9's on the 1x1 mesh and on each rank of the (1, 4)
-and (2, 2) meshes, ``bench_launches`` phase 10's bench headline's per step,
+``mesh_launches`` phase 9's over the 1x1 mesh's TRAIN_STEPS timed replays
+and on each rank's first step of the (1, 4) and (2, 2) meshes,
+``bench_launches`` phase 10's bench headline's per step,
 ``bench_err`` each phase-10 entry path's errors)
 on the line before the last, and
 ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
@@ -1527,6 +1543,9 @@ def loop_batched(argv, init_psnr: float, single_syncs: int, work: Path):
     launches = dict(_build.launches)
     hist = {r["step"]: r for r in trainer.history}
     run_dir, exposure = trainer.out_dir, trainer.exposure.params
+    exposure_graph = trainer._exposure_update.captured
+    exposure_graph = {"captures": exposure_graph.captures,
+                      "capture_s": exposure_graph.capture_s}
     max_count = float(trainer.scene.grad_count.max())
     del trainer
     torch.cuda.empty_cache()
@@ -1568,8 +1587,11 @@ def loop_batched(argv, init_psnr: float, single_syncs: int, work: Path):
            "alive": {s: int(r["n_gaussians"]) for s, r in sorted(hist.items())},
            "init_psnr": init_psnr, "final_psnr": final_psnr,
            "exposure_max_move": moved, "launches": launches, "captures_s_by_step": captures,
-           "phase_s": time.perf_counter() - t_phase}
+           "exposure_graph": exposure_graph, "phase_s": time.perf_counter() - t_phase}
     print("train_loop_batched: " + json.dumps(row), flush=True)
+    if exposure_graph["captures"] != 1:
+        fail(f"phase 6 (batched): the exposure update captured {exposure_graph['captures']} "
+             "times, not once")
 
 
 # phase 7: the serving and evaluation entry points at 1920x1080
@@ -2289,19 +2311,60 @@ def run_group(args, timeout: int, what: str, stderr=subprocess.STDOUT):
 
 
 def phase9_nccl(scene, budget):
-    """(a) A 1x1 mesh on NCCL: the sharded step against phase 5's step on
-    the bench view, and both timed."""
+    """(a) A 1x1 mesh on NCCL in this process: the captured sharded step
+    (what ``Trainer(mesh=…)`` runs), the eager one (``capture=False``) and
+    phase 5's captured one-process step, TRAIN_STEPS + 1 steps each from the
+    same start on the bench view."""
+    import gc
     import socket
 
-    import numpy as np
     import torch
     import torch.distributed as dist
 
+    from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    info = init_distributed("cuda", rank=0, world_size=1, init_method=f"tcp://localhost:{port}")
+    try:
+        mesh = make_mesh(1, 1, info=info)
+        if mesh.backend != "nccl":
+            fail(f"phase 9: a 1x1 mesh on one card chose {mesh.backend}")
+        row, graph_line, launches = nccl_runs(scene, budget, mesh)
+    finally:
+        gc.collect()  # the steps' graphs go before the communicators they use
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    print("mesh_1x1: " + json.dumps(row), flush=True)
+    print_graph_line("9 mesh_1x1", **graph_line)
+    if not row["loss_rel_err"] <= MESH_LOSS_TOL or row["dropped"]:
+        fail(f"phase 9 (a): loss error {row['loss_rel_err']}, {row['dropped']} pairs dropped")
+    bad = {k: v for k, v in row["grad_rel_err"].items() if not v <= MESH_GRAD_TOL}
+    if bad:
+        fail(f"phase 9 (a): the 1x1 mesh step's gradients differ: {bad}")
+    if not all(row["captured_vs_eager_bits_equal"].values()):
+        fail(f"phase 9 (a): the captured mesh step differs from the eager one: "
+             f"{row['captured_vs_eager_bits_equal']}")
+    want = {k: TRAIN_STEPS * n for k, n in BENCH_STEP_LAUNCHES.items()}
+    if launches != want or row["captures"] != 1:
+        fail(f"phase 9 (a): {TRAIN_STEPS} replays launched {launches} (want {want}), "
+             f"{row['captures']} captures")
+    return launches
+
+
+def nccl_runs(scene, budget, mesh):
+    """Phase 9 (a)'s three runs on ``mesh``; returns the ``mesh_1x1:`` row,
+    the ``graph:`` line's fields and the captured mesh step's launches over
+    its TRAIN_STEPS timed replays. Every graph is gone when it returns."""
+    import numpy as np
+    import torch
+
     from gaussian_splatting_lightning_tpu_torch import interop
     from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
     from gaussian_splatting_lightning_tpu_torch.ops import _build
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
-    from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
     from gaussian_splatting_lightning_tpu_torch.parallel.shard import (
         make_sharded_train_step,
         shard_adam,
@@ -2316,61 +2379,82 @@ def phase9_nccl(scene, budget):
     bg = torch.zeros(3, device="cuda")
     cfg = trainer.TrainConfig(tiling=TilingConfig(max_pairs=budget, block=32),
                               capacity=scene.capacity)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    info = init_distributed("cuda", rank=0, world_size=1, init_method=f"tcp://localhost:{port}")
-    try:
-        mesh = make_mesh(1, 1, info=info)
-        if mesh.backend != "nccl":
-            fail(f"phase 9: a 1x1 mesh on one card chose {mesh.backend}")
-        sharded = make_sharded_train_step(cfg, 1.0, w, h, mesh)
-        single = trainer.make_train_step(cfg, 1.0, w, h)
-        runs = {
-            "single": lambda s, a, i: single(s, a, i, cam, target, bg),
-            "mesh": lambda s, a, i: sharded(s, a, i, stack_cameras([cam]), target[None],
-                                            bg[None]),
-        }
-        first, walls, launches = {}, {}, {}
-        for name, run in runs.items():
-            adam = init_adam(scene.params)
-            if name == "mesh" and sharded.sharded_adam:
-                adam = shard_adam(adam, mesh)
+    steps = {"mesh": make_sharded_train_step(cfg, 1.0, w, h, mesh),
+             "mesh_eager": make_sharded_train_step(cfg, 1.0, w, h, mesh, capture=False),
+             "single": trainer.make_train_step(cfg, 1.0, w, h)}
+    cams = stack_cameras([cam])
+    runs = {}
+    for name, fn in steps.items():
+        adam = init_adam(scene.params)
+        if name != "single":
+            adam = shard_adam(adam, mesh)
+            args = (cams, target[None], bg[None])
+        else:
+            args = (cam, target, bg)
+        st = {"scene": scene, "adam": adam, "step": 0}
+
+        def one_step(fn=fn, st=st, args=args):
+            st["scene"], st["adam"], logs = fn(st["scene"], st["adam"], st["step"], *args)
+            st["step"] += 1
+            return logs
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        logs = one_step()
+        torch.cuda.synchronize()
+        # copies: the captured steps update their moments in place
+        mu0 = {k: getattr(st["adam"].mu, k).clone() for k in PARAM_NAMES}
+        losses, dropped = [float(logs["loss"])], int(logs["num_dropped_pairs"])
+        _build.reset_launch_counts()
+        walls = []
+        for _ in range(TRAIN_STEPS):
             torch.cuda.synchronize()
-            _build.reset_launch_counts()
-            state = run(scene, adam, 0)
+            t0 = time.perf_counter()
+            logs = one_step()
             torch.cuda.synchronize()
-            launches[name] = dict(_build.launches)
-            # a copy: the captured step updates its moments in place
-            mu = type(state[1].mu)(**{f.name: getattr(state[1].mu, f.name).clone()
-                                      for f in dataclasses.fields(state[1].mu)})
-            first[name] = (float(state[2]["loss"]), mu, int(state[2]["num_dropped_pairs"]))
-            walls[name] = []
-            for i in range(1, 6):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state = run(state[0], state[1], i)
-                torch.cuda.synchronize()
-                walls[name].append((time.perf_counter() - t0) * 1e3)
-            del state
-        loss_err = abs(first["mesh"][0] - first["single"][0]) / abs(first["single"][0])
-        grad_err = moment_errs(first["mesh"][1], first["single"][1])
-        dropped = first["mesh"][2] + first["single"][2]
-    finally:
-        dist.destroy_process_group()
-    row = {"backend": mesh.backend, "loss": first["mesh"][0], "loss_rel_err": loss_err,
-           "grad_rel_err": grad_err, "dropped": dropped,
-           "step_wall_ms_median": {k: sorted(v)[len(v) // 2] for k, v in walls.items()},
-           "step_wall_ms": walls, "launches": launches["mesh"]}
-    print("mesh_1x1: " + json.dumps(row), flush=True)
-    if not loss_err <= MESH_LOSS_TOL or dropped:
-        fail(f"phase 9 (a): loss error {loss_err}, {dropped} pairs dropped")
-    bad = {k: v for k, v in grad_err.items() if not v <= MESH_GRAD_TOL}
-    if bad:
-        fail(f"phase 9 (a): the 1x1 mesh step's gradients differ: {bad}")
-    if any(launches["mesh"][k] < 1 for k in _build.SOURCES):
-        fail(f"phase 9 (a): a kernel was not launched: {launches['mesh']}")
-    return launches["mesh"]
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(logs["loss"]))
+            dropped += int(logs["num_dropped_pairs"])
+        runs[name] = dict(st=st, one_step=one_step, mu0=mu0, losses=losses, walls=walls,
+                          dropped=dropped, launches=dict(_build.launches),
+                          peak=torch.cuda.max_memory_allocated() - held)
+    cap, eag, one = runs["mesh"], runs["mesh_eager"], runs["single"]
+    bits = {"losses": cap["losses"] == eag["losses"]}
+    for part in ("params", "mu", "nu"):
+        for k in PARAM_NAMES:
+            get = ((lambda r, k=k: getattr(r["st"]["scene"].params, k)) if part == "params"
+                   else (lambda r, k=k, part=part: getattr(getattr(r["st"]["adam"], part), k)))
+            bits[f"{part}.{k}"] = torch.equal(get(cap), get(eag))
+    for k in ("max_radii2d", "grad_accum", "grad_count"):
+        bits[k] = torch.equal(getattr(cap["st"]["scene"], k), getattr(eag["st"]["scene"], k))
+    cap_mu = type(scene.params)(**cap["mu0"])
+    one_mu = type(scene.params)(**one["mu0"])
+    row = {"backend": mesh.backend, "loss": cap["losses"][0],
+           "loss_rel_err": abs(cap["losses"][0] - one["losses"][0]) / abs(one["losses"][0]),
+           "loss_rel_err_11_steps": max(abs(a - b) / abs(b) for a, b in zip(cap["losses"],
+                                                                             one["losses"])),
+           "grad_rel_err": moment_errs(cap_mu, one_mu),
+           "captured_vs_eager_bits_equal": bits,
+           "dropped": sum(r["dropped"] for r in runs.values()),
+           "captures": steps["mesh"].captured.captures,
+           "step_wall_ms_median": {k: sorted(r["walls"])[TRAIN_STEPS // 2]
+                                   for k, r in runs.items()},
+           "step_wall_ms": {k: r["walls"] for k, r in runs.items()},
+           "peak_mem_added_bytes": {k: r["peak"] for k, r in runs.items()},
+           "launches": {k: r["launches"] for k, r in runs.items()}}
+    del cap_mu, one_mu
+    sides = {name: dict(graph_side(runs[name]["one_step"], 5, "step", runs[name]["peak"],
+                                   runs[name]["launches"]),
+                        step_wall_ms_median=row["step_wall_ms_median"][name])
+             for name in ("mesh", "mesh_eager")}
+    graph_line = dict(capture_s=steps["mesh"].captured.capture_s, captured=sides["mesh"],
+                      eager=sides["mesh_eager"], one_process_step_wall_ms_median=(
+                          row["step_wall_ms_median"]["single"]))
+    launches = cap["launches"]
+    del runs, steps, cap, eag, one
+    torch.cuda.empty_cache()
+    return row, graph_line, launches
 
 
 def mesh_ranks(budget: int, out_path: str) -> int:
@@ -2597,6 +2681,151 @@ def phase9_cli(work: Path, scene_dir: Path, loop_run: Path):
         fail(f"phase 9 (c): the densify event added no splats: {alive}")
 
 
+# (d) the train CLI on a one-rank NCCL mesh under torchrun, with exposure
+MESH_NCCL_CLI_SETS = {"train.batch_views": 2, "train.use_exposure": "true"}
+MESH_NCCL_WINDOW = (41, 49)  # steps between the CLI's log reads at 40 and 50
+
+
+@contextlib.contextmanager
+def record_loop(window):
+    """While the block runs a train CLI in this process: at which step each
+    captured graph captured, by the graph's name, with the capture's seconds
+    (``Captured`` sees every call of every graph), and the wall of the steps
+    from ``window[0]`` to ``window[1]`` between two syncs (the host runs
+    ahead of the card between the CLI's log reads)."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.training import trainer as tr
+    from gaussian_splatting_lightning_tpu_torch.utils import graph
+
+    rec = {"captures": {}, "window": [], "step": None}
+    step_inputs, call = tr.Trainer._step_inputs, graph.Captured.__call__
+
+    def recorded_inputs(self):
+        if self.step in window and len(rec["window"]) < 2:
+            torch.cuda.synchronize()
+            rec["window"].append(time.perf_counter())
+        rec["step"] = self.step
+        return step_inputs(self)
+
+    def recorded_call(self, *args):
+        n = self.captures
+        out = call(self, *args)
+        if self.captures > n:
+            rec["captures"].setdefault(self.name, {})[rec["step"]] = self.capture_s
+        return out
+
+    tr.Trainer._step_inputs, graph.Captured.__call__ = recorded_inputs, recorded_call
+    try:
+        yield rec
+    finally:
+        tr.Trainer._step_inputs, graph.Captured.__call__ = step_inputs, call
+
+
+def loop_record(trainer, rec, launches) -> dict:
+    """A recorded CLI run's numbers (``record_loop``)."""
+    import torch
+
+    hist = [{k: r[k] for k in ("step", "loss", "n_gaussians", "num_dropped_pairs")}
+            for r in trainer.history]
+    moved = float((trainer.exposure.params - torch.eye(3, 4, device=trainer.device))
+                  .abs().amax())
+    return {"backend": None if trainer.mesh is None else trainer.mesh.backend,
+            "step": type(trainer._train_step).__name__, "history": hist,
+            "captures_s_by_step": {name: {str(step): sec for step, sec in by_step.items()}
+                                   for name, by_step in rec["captures"].items()},
+            "exposure_max_move": moved,
+            "window_steps": list(MESH_NCCL_WINDOW),
+            "step_wall_ms_window": (rec["window"][1] - rec["window"][0]) * 1e3
+            / (MESH_NCCL_WINDOW[1] - MESH_NCCL_WINDOW[0]), "launches": launches}
+
+
+def mesh_cli_rank(out_path: str, argv) -> int:
+    """(d) The train CLI's ``main`` on this rank under torchrun, recorded by
+    ``record_loop``; writes the numbers to ``out_path``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
+
+    _build.reset_launch_counts()
+    with record_loop(MESH_NCCL_WINDOW) as rec:
+        trainer = train_cli.main(argv)
+    row = loop_record(trainer, rec, dict(_build.launches))
+    del trainer
+    gc.collect()  # the step's graph goes before the communicators it uses
+    torch.cuda.synchronize()
+    Path(out_path).write_text(json.dumps(row))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase9_cli_nccl(work: Path, scene_dir: Path, loop_run: Path):
+    """(d) The train CLI under torchrun with one rank, ``mesh_view=1``,
+    ``mesh_tile=1`` (a 1x1 mesh on NCCL: the captured sharded step), two
+    views a step and exposure, at phase (c)'s operating point, against the
+    one-process CLI with the same settings; both recorded by
+    ``record_loop``."""
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
+
+    start = json.loads((loop_run / "config.json").read_text())["train"]["tiling"]["max_pairs"]
+    sets = dict(LOOP_SETS, **MESH_CLI_SETS, **MESH_NCCL_CLI_SETS, **{
+        "data.colmap_path": str(scene_dir), "data.image_folder": str(scene_dir / "images"),
+        "train.tiling.max_pairs": 8 * start})
+    argv = ["-c", str(ROOT / "configs" / "rehearsal_synthetic.yaml"), "--device", "cuda"]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    out = work / "nccl_cli.json"
+    t0 = time.perf_counter()
+    rc, text, _ = run_group(
+        TORCHRUN + ["--nproc-per-node", "1", str(ROOT / "chip_smoke.py"), "--mesh-cli",
+                    str(out)] + argv
+        + ["--out-dir", str(work / "nccl_cli"), "--set", "mesh_view=1", "--set", "mesh_tile=1"],
+        400, "phase 9 (d)")
+    mesh_s = time.perf_counter() - t0
+    if rc != 0 or not out.exists():
+        fail(f"phase 9 (d): the one-rank mesh CLI exited {rc}:\n{text[-12000:]}")
+    print("mesh_nccl_cli: " + " | ".join(text.strip().splitlines()[-4:]), flush=True)
+    m = json.loads(out.read_text())
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    with record_loop(MESH_NCCL_WINDOW) as rec, contextlib.redirect_stdout(io.StringIO()):
+        trainer = train_cli.main(argv + ["--out-dir", str(work / "one_nccl_cli")])
+    o = loop_record(trainer, rec, dict(_build.launches))
+    del trainer
+    one_s = time.perf_counter() - t0
+    mh, oh = m["history"], o["history"]
+    diff = max(abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(mh, oh))
+    alive = [[int(a["n_gaussians"]), int(b["n_gaussians"])] for a, b in zip(mh, oh)]
+    row = {"steps": [r["step"] for r in mh], "loss_max_rel_diff": diff,
+           "alive_mesh_vs_one": alive, "dropped": [r["num_dropped_pairs"] for r in mh + oh],
+           "mesh": {k: m[k] for k in m if k != "history"},
+           "one": {k: o[k] for k in o if k != "history"}, "mesh_run_s": mesh_s,
+           "one_run_s": one_s}
+    print("mesh_nccl_cli_row: " + json.dumps(row), flush=True)
+    if m["backend"] != "nccl" or m["step"] != "ShardedTrainStep":
+        fail(f"phase 9 (d): the CLI ran {m['step']} on {m['backend']}")
+    if [r["step"] for r in mh] != [r["step"] for r in oh] or len(mh) != 6:
+        fail(f"phase 9 (d): logged steps {[r['step'] for r in mh]} and "
+             f"{[r['step'] for r in oh]}")
+    if not diff <= MESH_CLI_TOL or any(a != b for a, b in alive) or any(row["dropped"]):
+        fail(f"phase 9 (d): losses differ by {diff}, alive {alive}, dropped {row['dropped']}")
+    if not alive[-1][0] > alive[0][0] or not m["exposure_max_move"] > 0:
+        fail(f"phase 9 (d): the densify event added no splats ({alive}) or the exposure "
+             f"did not move ({m['exposure_max_move']})")
+    for run, step_graph in ((m, "sharded_train_step"), (o, "train_step")):
+        caps = run["captures_s_by_step"]
+        if not all("0" in caps.get(name, {}) for name in (step_graph, "exposure_update")):
+            fail(f"phase 9 (d): {step_graph} and the exposure update did not both capture "
+                 f"at step 0: {caps}")
+    if any(m["launches"][k] < 1 for k in _build.SOURCES):
+        fail(f"phase 9 (d): a kernel was not launched on the mesh: {m['launches']}")
+
+
 # phase 10: the measurement entry points, each run as a user runs it
 BENCH_BUDGET = 2_138_112  # BENCH_PAIRS + 2%, rounded up to 8192: the bench's budget
 BENCH_STEP_LAUNCHES = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
@@ -2801,6 +3030,8 @@ def phase10() -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-ranks"]:  # one rank of phase 9 (b), under torchrun
         return mesh_ranks(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--mesh-cli"]:  # the rank of phase 9 (d), under torchrun
+        return mesh_cli_rank(sys.argv[2], sys.argv[3:])
     try:
         import torch
     except ImportError:
@@ -2817,27 +3048,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    probe()
-    phase2()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    timed("1 probe", probe)
+    timed("2", phase2)
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
-        scene, budget, bench_ply, kernels = phase3(work)
-        phase4()
-        bare_step_syncs, step_kernels = phase5(scene, budget)
+        scene, budget, bench_ply, kernels = timed("3", phase3, work)
+        timed("4", phase4)
+        bare_step_syncs, step_kernels = timed("5", phase5, scene, budget)
         kernels += step_kernels
-        batched_launches = phase8(scene, budget)
-        t9 = time.perf_counter()
-        mesh_launches = {"1x1": phase9_nccl(scene, budget)}
+        batched_launches = timed("8", phase8, scene, budget)
+        mesh_launches = {"1x1": timed("9a", phase9_nccl, scene, budget)}
         del scene
-        rank_launches, band_errs = phase9_ranks(budget, work)
+        rank_launches, band_errs = timed("9b", phase9_ranks, budget, work)
         mesh_launches.update(rank_launches)
-        t9 = time.perf_counter() - t9
-        loop_launches, run_dir, scene_dir, loop_psnr = phase6(bare_step_syncs, work)
-        serve_launches = phase7(work, run_dir, scene_dir, loop_psnr, bench_ply)
-        t9c = time.perf_counter()
-        phase9_cli(work, scene_dir, run_dir)
-        print(f"phase9: {t9 + time.perf_counter() - t9c:.1f} s", flush=True)
-    bench_launches, bench_errs = phase10()
+        loop_launches, run_dir, scene_dir, loop_psnr = timed("6", phase6, bare_step_syncs,
+                                                             work)
+        serve_launches = timed("7", phase7, work, run_dir, scene_dir, loop_psnr, bench_ply)
+        timed("9c", phase9_cli, work, scene_dir, run_dir)
+        timed("9d", phase9_cli_nccl, work, scene_dir, run_dir)
+        print(f"phase9: {sum(v for k, v in seconds.items() if k[0] == '9'):.1f} s", flush=True)
+    bench_launches, bench_errs = timed("10", phase10)
+    print("phases_s: " + json.dumps(seconds), flush=True)
     for row in kernels:
         row["loop_launches"] = loop_launches[row["name"]]
         row["serve_launches"] = {cli: n[row["name"]] for cli, n in serve_launches.items()}

@@ -1,9 +1,10 @@
 """Carry weights, optimizer state and cameras across from numpy, and the
 bench's fixtures.
 
-``scene_from_numpy`` / ``adam_from_numpy`` / ``camera_from_numpy`` take the
-fields of the JAX package's ``GaussianParams``, ``AdamState`` and ``Camera``
-as numpy arrays and return the port's objects. ``synthetic_scene`` and ``camera`` reproduce
+``scene_from_numpy`` / ``adam_from_numpy`` / ``exposure_from_numpy`` /
+``camera_from_numpy`` take the fields of the JAX package's ``GaussianParams``,
+``AdamState``, ``ExposureState`` and ``Camera`` as numpy arrays and return the
+port's objects. ``synthetic_scene`` and ``camera`` reproduce
 ``__graft_entry__._synthetic_scene`` and ``_camera`` number for number (the
 same ``numpy.random.default_rng`` draws in the same order); unlike
 ``from_points`` they skip the KNN scale step, whose result those fixtures
@@ -29,6 +30,7 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
     pad_arrays,
     scene_from_arrays,
 )
+from gaussian_splatting_lightning_tpu_torch.training.exposure import ExposureState
 from gaussian_splatting_lightning_tpu_torch.training.optimizer import AdamState
 
 
@@ -52,6 +54,17 @@ def adam_from_numpy(count, mu: dict, nu: dict, device="cuda") -> AdamState:
                                                  device=dev) for k in PARAM_NAMES})
 
     return AdamState(count=int(count), mu=params(mu), nu=params(nu))
+
+
+def exposure_from_numpy(params, mu, nu, count, device="cuda") -> ExposureState:
+    """The (V, 3, 4) matrices and their Adam moments; ``count`` is the
+    number of steps taken."""
+    dev = resolve_device(device)
+
+    def tensor(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    return ExposureState(tensor(params), tensor(mu), tensor(nu), int(count))
 
 
 def camera_from_numpy(viewmatrix, projmatrix, campos, tanfovx, tanfovy,

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -50,10 +51,19 @@ from gaussian_splatting_lightning_tpu_torch.parallel.mesh import Mesh
 from gaussian_splatting_lightning_tpu_torch.training.exposure import apply_exposure
 from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
     AdamState,
+    adam_scalars,
     adam_update,
+    adam_update_,
     make_lr_schedules,
+    scalars_tensor,
 )
-from gaussian_splatting_lightning_tpu_torch.training.trainer import resolve_rasterizer
+from gaussian_splatting_lightning_tpu_torch.training.trainer import (
+    donated_state,
+    resolve_rasterizer,
+    step_args,
+    step_tensors,
+)
+from gaussian_splatting_lightning_tpu_torch.utils import graph
 
 batch_cameras = stack_cameras  # the JAX name of the camera stack
 
@@ -277,9 +287,31 @@ class ShardedTrainStep:
     logs are the same on every rank. ``band_stats`` holds this rank's last
     per-view band ``num_pairs`` and ``num_dropped_pairs``.
 
+    On an NCCL mesh on the kernel route (``rasterizer: cuda``) every call
+    replays a captured graph of the whole step (``utils/graph.py`` with
+    ``collectives=True``), the counterpart of the JAX step's
+    ``jax.jit(shard_map(...), donate_argnums=(0, 1))``. The choice is made
+    here, once: gloo's collectives run on the host and cannot be captured,
+    and the tiled route's member table reads the host, so a gloo mesh and
+    the ``plain`` and ``xla`` routes run eagerly, as does ``capture=False``.
+    The key is the config, the image size, the mesh shape, the band geometry
+    (``gy_local``, ``band_tiling``), ``sharded_adam``, the active SH degree,
+    whether ``exp_mat`` and ``depth_target`` are given and the inputs'
+    shapes: the same on every rank, so every rank captures anew at the same
+    step. Captured, the scene and Adam are donated as in ``make_train_step``:
+    the returned ones are the graph's own buffers, updated in place by every
+    replay (another scene or Adam state is copied in), and the logs, the
+    exposure gradient and ``band_stats`` hold until the next replay of any
+    graph. Eager, the step is out of place. ``.key(...)`` (the call's
+    arguments) gives the capture key in pure Python, ``.captured`` the
+    ``graph.Captured`` (None when the step never captures), and
+    ``.in_place(...)`` the donating step run eagerly on any device: the
+    graph's body, updating the caller's tensors in place.
+
     ``cfg.sparse_adam`` has no effect here, as in the JAX sharded step."""
 
-    def __init__(self, cfg, spatial_scale: float, width: int, height: int, mesh: Mesh):
+    def __init__(self, cfg, spatial_scale: float, width: int, height: int, mesh: Mesh,
+                 capture: bool = True):
         self.cfg, self.width, self.height, self.mesh = cfg, width, height, mesh
         self.schedules = make_lr_schedules(cfg.optimizer, spatial_scale)
         self.route = cfg.rasterizer
@@ -291,16 +323,84 @@ class ShardedTrainStep:
                                           cfg.tiling.resolve_block(self.route))
         self.band_tiling = band_tiling(cfg.tiling, self.n_tile)
         self.band_stats: dict = {}
+        capture = capture and mesh.backend == "nccl" and self.route == "cuda"
+        # the graph holds the step weakly: dropping the step releases its
+        # graph at once, before the process group its collectives use can be
+        # destroyed
+        body = weakref.WeakMethod(self._body)
+        self.captured = graph.capture(lambda static, *t: body()(static, *t),
+                                      name="sharded_train_step",
+                                      collectives=True) if capture else None
 
     def __call__(self, scene: GaussianScene, adam: AdamState, step, cameras: Camera,
                  images, backgrounds, exp_mat=None, depth_target=None):
-        cfg, mesh = self.cfg, self.mesh
-        n_dev = mesh.size
+        if self.captured is not None and scene.device.type == "cuda":
+            return self.in_place(scene, adam, step, cameras, images, backgrounds, exp_mat,
+                                 depth_target, run=self.captured)
+        self._check_capacity(scene)
+        scene, adam, logs, exp_grad, n_pairs, dropped = self._step(
+            scene, adam, cameras, images, backgrounds, exp_mat, depth_target, step=step)
+        self.band_stats = {"num_pairs": n_pairs, "num_dropped_pairs": dropped}
+        if exp_mat is not None:
+            return scene, adam, logs, exp_grad
+        return scene, adam, logs
+
+    def in_place(self, scene: GaussianScene, adam: AdamState, step, cameras: Camera,
+                 images, backgrounds, exp_mat=None, depth_target=None, run=None):
+        """The donating step: ``run`` (the step's body eagerly, or its
+        captured graph) updates the scene's and Adam's tensors in place (the
+        graph's buffers when captured) and the results are built on them."""
+        self._check_capacity(scene)
+        run = run or self._body
+        scalars = scalars_tensor(adam_scalars(self.schedules, self.cfg.optimizer, step,
+                                              adam.count + 1), scene.device)
+        inputs = step_tensors(scene, adam, scalars, cameras, images, backgrounds, exp_mat,
+                              depth_target)
+        logs, exp_grad, n_pairs, dropped = run(self._static(scene, exp_mat, depth_target),
+                                               *inputs)
+        self.band_stats = {"num_pairs": n_pairs, "num_dropped_pairs": dropped}
+        scene, adam = donated_state(run.inputs if run is self.captured else inputs,
+                                    scene.active_sh_degree, adam.count + 1)
+        if exp_mat is not None:
+            return scene, adam, dict(logs), exp_grad
+        return scene, adam, dict(logs)
+
+    def key(self, scene, adam, step, cameras, images, backgrounds, exp_mat=None,
+            depth_target=None) -> tuple:
+        del step
+        return graph.graph_key(self._static(scene, exp_mat, depth_target), step_tensors(
+            scene, adam, torch.empty(len(PARAM_NAMES) + 2), cameras, images, backgrounds,
+            exp_mat, depth_target))
+
+    def _static(self, scene, exp_mat, depth_target) -> tuple:
+        return (self.cfg, self.width, self.height, (self.n_view, self.n_tile), self.gy_local,
+                self.band_tiling, self.sharded_adam, scene.active_sh_degree,
+                exp_mat is not None, depth_target is not None)
+
+    def _check_capacity(self, scene):
+        n_dev = self.mesh.size
         if self.sharded_adam and scene.capacity % n_dev:
             raise ValueError(
                 f"scene capacity {scene.capacity} is not divisible by {n_dev} devices but "
-                f"cfg.capacity={cfg.capacity} selected sharded Adam — pass a scene whose "
+                f"cfg.capacity={self.cfg.capacity} selected sharded Adam — pass a scene whose "
                 "capacity matches cfg.capacity (or a capacity divisible by the mesh size)")
+
+    def _body(self, static, *t):
+        scene, adam, scalars, cameras, images, backgrounds, exp_mat, depth_target = step_args(
+            t, *static[-3:])
+        _, _, logs, exp_grad, n_pairs, dropped = self._step(
+            scene, adam, cameras, images, backgrounds, exp_mat, depth_target, scalars=scalars)
+        return logs, exp_grad, n_pairs, dropped
+
+    def _step(self, scene, adam, cameras, images, backgrounds, exp_mat, depth_target,
+              step=None, scalars=None):
+        """The step, out of place with Adam at ``step`` (the eager step), or
+        given ``scalars`` (``adam_scalars`` on the device) in place: the new
+        parameters, moments and statistics written into ``scene``'s and
+        ``adam``'s own tensors (the graph's body), with the same bits.
+        Returns (scene, adam, logs, exp_grad, band pairs, band drops)."""
+        cfg, mesh = self.cfg, self.mesh
+        n_dev = mesh.size
         b_local = images.shape[0]
         use_depth = cfg.w_depth > 0.0 and depth_target is not None
         leaves = {k: getattr(scene.params, k).detach().requires_grad_() for k in PARAM_NAMES}
@@ -348,7 +448,7 @@ class ShardedTrainStep:
             logs["depth_l1"] = sums[3].mean()
             logs["loss"] = logs["loss"] + cfg.w_depth * logs["depth_l1"]
 
-        new_params, adam = self._update(scene, adam, grads[:len(PARAM_NAMES)], step)
+        new_params, adam = self._update(scene, adam, grads[:len(PARAM_NAMES)], step, scalars)
         # each view's own screen-space signal: the sum over the ring, times
         # b_local to undo the batch mean (gs_lightning_module.py:175-178)
         screen = mesh.all_reduce(grads[len(PARAM_NAMES)], "tile") * b_local
@@ -365,10 +465,15 @@ class ShardedTrainStep:
         acc = mesh.all_reduce(torch.stack([torch.where(seen, norms, 0.0).sum(dim=0),
                                            seen.to(torch.float32).sum(dim=0)]), "view")
         max_radii = mesh.all_reduce(torch.amax(radii, dim=0), "view", op="max")
+
+        def dst(name):
+            return None if scalars is None else getattr(scene, name)
+
         scene = dataclasses.replace(
             scene, params=new_params,
-            max_radii2d=torch.maximum(scene.max_radii2d, max_radii),
-            grad_accum=scene.grad_accum + acc[0], grad_count=scene.grad_count + acc[1])
+            max_radii2d=torch.maximum(scene.max_radii2d, max_radii, out=dst("max_radii2d")),
+            grad_accum=torch.add(scene.grad_accum, acc[0], out=dst("grad_accum")),
+            grad_count=torch.add(scene.grad_count, acc[1], out=dst("grad_count")))
 
         keys = list(logs)
         mean = mesh.all_reduce(torch.stack([logs[k] for k in keys]), "world") / n_dev
@@ -382,15 +487,14 @@ class ShardedTrainStep:
                                            overflow.to(torch.int64)]), "world", op="max")
         logs["num_pairs"] = top[0] * self.n_tile
         logs["num_tile_overflow"] = top[1]
-        self.band_stats = {"num_pairs": n_pairs, "num_dropped_pairs": dropped}
-        if exp_mat is not None:
-            return scene, adam, logs, exp_grad
-        return scene, adam, logs
+        return scene, adam, logs, exp_grad, n_pairs, dropped
 
-    def _update(self, scene, adam, grads, step):
+    def _update(self, scene, adam, grads, step, scalars):
         """Sum the ranks' gradients and run Adam: ZeRO-1 (reduce-scatter,
         this rank's rows, all-gather) or replicated (all-reduce). The six
-        groups travel as one (C, 59) table."""
+        groups travel as one (C, 59) table. Out of place at ``step``, or in
+        place given ``scalars`` (see ``_step``): the all-gathered rows are
+        then copied into the scene's parameters."""
         cfg, mesh, cap = self.cfg, self.mesh, scene.capacity
         widths = [g[0].numel() for g in grads]
         flat = torch.cat([g.reshape(cap, -1) for g in grads], dim=1)
@@ -400,27 +504,39 @@ class ShardedTrainStep:
             return GaussianParams(**{k: p.reshape((-1,) + like[i].shape[1:])
                                      for i, (k, p) in enumerate(zip(PARAM_NAMES, parts))})
 
+        def adam_step(params, g):
+            if scalars is None:
+                return adam_update(params, g, adam, self.schedules, cfg.optimizer, step)
+            return params, adam_update_(params, g, adam, scalars, cfg.optimizer)
+
         shapes = [getattr(scene.params, k) for k in PARAM_NAMES]
         if not self.sharded_adam:
             summed = mesh.all_reduce(flat, "world") / self.n_view
-            return adam_update(scene.params, split(summed, shapes), adam, self.schedules,
-                               cfg.optimizer, step)
+            return adam_step(scene.params, split(summed, shapes))
         rows = cap // mesh.size
         i = mesh.axis_index("world")
         g_shard = mesh.reduce_scatter(flat, "world", dim=0) / self.n_view
         p_shard = GaussianParams(**{k: getattr(scene.params, k)[i * rows:(i + 1) * rows]
                                     for k in PARAM_NAMES})
-        new_shard, adam = adam_update(p_shard, split(g_shard, shapes), adam, self.schedules,
-                                      cfg.optimizer, step)
+        new_shard, adam = adam_step(p_shard, split(g_shard, shapes))
         table = torch.cat([getattr(new_shard, k).reshape(rows, -1) for k in PARAM_NAMES],
                           dim=1)
-        return split(mesh.all_gather(table, "world", dim=0), shapes), adam
+        whole = split(mesh.all_gather(table, "world", dim=0), shapes)
+        if scalars is None:
+            # each group a tensor of its own, as the graph's buffers are: the
+            # next step's reductions over a strided view of the table sum in
+            # another order
+            return GaussianParams(**{k: getattr(whole, k).contiguous()
+                                     for k in PARAM_NAMES}), adam
+        for k in PARAM_NAMES:
+            getattr(scene.params, k).copy_(getattr(whole, k))
+        return scene.params, adam
 
 
 def make_sharded_train_step(cfg, spatial_scale: float, width: int, height: int,
-                            mesh: Mesh) -> ShardedTrainStep:
+                            mesh: Mesh, capture: bool = True) -> ShardedTrainStep:
     """The multi-rank train step; see ``ShardedTrainStep``."""
-    return ShardedTrainStep(cfg, spatial_scale, width, height, mesh)
+    return ShardedTrainStep(cfg, spatial_scale, width, height, mesh, capture)
 
 
 def _shard_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -10,7 +10,8 @@ Counterpart of the JAX repo's ``scripts/tpu_banded_check.py``:
 2. the per-tile depth-ordered pair lists of each band are compared with the
    full frame's;
 3. one ``make_sharded_train_step`` on a 1x1 mesh (this process alone, NCCL
-   on a card, gloo on the CPU) is compared with the one-process step.
+   on a card, where the step is captured and replayed as a CUDA graph, gloo
+   on the CPU, where it runs eagerly) is compared with the one-process step.
 
 Prints the record as JSON (the last line) and writes it to ``--out`` when
 given; exits 1 when it is not ``ok``.
@@ -113,8 +114,8 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
         np.array_equal(a, b) for a, b in zip(band_lists, full_lists))
     print(f"per-tile pair lists identical: {lists_equal}")
 
-    # the sharded step on a 1x1 mesh against the one-process step, both
-    # eager: the check is of values, and the mesh step is not captured
+    # the sharded step on a 1x1 mesh (captured on NCCL, as the mesh Trainer
+    # runs it) against the eager one-process step: the check is of values
     tcfg = TrainConfig(capacity=scene.capacity, adaptive_pairs=False, rasterizer="cuda",
                        tiling=cfg)
     target = torch.from_numpy(np.random.default_rng(0).uniform(
@@ -133,6 +134,7 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
             adam = shard_adam(adam, mesh)
         _, _, logs = step(scene, adam, 0, stack_cameras([cam]), target, bgs)
         loss = float(logs["loss"])
+        del step, adam, logs  # the step's graph goes before the communicators it uses
     finally:
         dist.destroy_process_group()
     loss_err = abs(loss - ref_loss) / abs(ref_loss)

@@ -8,6 +8,11 @@ its band's pairs, its band's pixels, the splat tables it holds (all of
 them) and the Adam rows it updates (``capacity / n_dev`` under ZeRO-1).
 Rank 0 writes every rank's record to ``--out`` as a JSON list.
 
+The step runs eagerly: the harness keeps the JAX scaling harness's route
+``xla`` (the tiled route), whose per-tile member table reads the host, so
+``make_sharded_train_step`` captures it on no backend (a captured step
+needs route ``cuda`` on NCCL).
+
 Usage (what the harness runs):
     python -m torch.distributed.run --standalone --nproc-per-node N \
         -m gaussian_splatting_lightning_tpu_torch.scripts.scaling_worker \

@@ -23,7 +23,10 @@ A mesh (``mesh_view``, ``mesh_tile``) runs one process per rank:
 
 Each rank takes ``cuda:{LOCAL_RANK % device_count}`` (or the CPU with
 ``--device cpu``), NCCL when every rank has a card of its own, gloo
-otherwise; rank 0 writes the run directory.
+otherwise; rank 0 writes the run directory. On NCCL the sharded step and the
+exposure update replay captured CUDA graphs (``parallel/shard.py``). Under
+torchrun one rank is a job too (``--nproc-per-node 1`` with ``mesh_view=1``,
+``mesh_tile=1``: a 1x1 mesh).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from pathlib import Path
 
@@ -185,7 +189,9 @@ def build_mesh(cfg, device):
     from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
 
     asked = cfg.mesh_tile is not None or cfg.mesh_view > 1
-    info = init_distributed(device)
+    # torchrun's rendezvous (it sets MASTER_ADDR) joins a job of one rank too
+    torchrun = asked and "MASTER_ADDR" in os.environ
+    info = init_distributed(device, init_method="env://" if torchrun else None)
     if info is None:
         if asked:
             raise ValueError(f"mesh_view={cfg.mesh_view}, mesh_tile={cfg.mesh_tile} needs "
@@ -209,10 +215,13 @@ def build_mesh(cfg, device):
 
 
 if __name__ == "__main__":
+    import gc
+
     import torch.distributed as dist
 
     try:
         main()
     finally:
         if dist.is_initialized():
+            gc.collect()  # the step's graph goes before the communicators it uses
             dist.destroy_process_group()

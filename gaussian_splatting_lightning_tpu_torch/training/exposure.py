@@ -2,7 +2,10 @@
 
 Counterpart of ``gaussian_splatting_lightning_tpu/training/exposure.py``:
 applied to the rendered image before the loss, initialised to identity,
-with its own Adam step on the stepped view's row.
+with its own Adam step on the stepped view's row. The JAX loop runs that
+step as ``jax.jit(exposure_update, donate_argnums=(0,))``; here
+``make_exposure_update`` replays ``exposure_update_`` (in place) as a
+captured CUDA graph (``utils/graph.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,11 @@ import dataclasses
 import torch
 
 from gaussian_splatting_lightning_tpu_torch.device import resolve_device
+from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
+    bias_corrections,
+    scalars_tensor,
+)
+from gaussian_splatting_lightning_tpu_torch.utils import graph
 
 
 @dataclasses.dataclass
@@ -39,6 +47,37 @@ def apply_exposure(mat: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+def exposure_update_(
+    state: ExposureState,
+    view_idx: torch.Tensor,  # () or (B,) int64 on the state's device
+    grad: torch.Tensor,  # (3, 4) or (B, 3, 4) gradient of the views' matrices
+    scalars: torch.Tensor,  # (2,): bias_corrections(b1, b2, state.count + 1)
+    lr: float = 0.001,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-15,
+) -> ExposureState:
+    """Adam step on the stepped views' exposure rows, written into the
+    state's own tensors (JAX donates the state); returns the state with its
+    count raised. The bias corrections arrive as a device input, so a
+    captured update replays with each step's values. The rows are updated
+    one view at a time in batch order: a view twice in one batch (the
+    sampler's batch that straddles two epochs) gets both updates added to
+    its matrix and keeps the later view's moments, as JAX's ``.at[].add``
+    and ``.at[].set`` give them, with no host read."""
+    idx = view_idx.reshape(-1)
+    grad = grad.reshape(idx.shape[0], 3, 4)
+    m = b1 * state.mu[idx] + (1 - b1) * grad
+    v = b2 * state.nu[idx] + (1 - b2) * grad * grad
+    update = -lr * ((m / scalars[0]) / (torch.sqrt(v / scalars[1]) + eps))
+    for b in range(idx.shape[0]):
+        row = idx[b:b + 1]
+        state.params.index_add_(0, row, update[b:b + 1])
+        state.mu.index_copy_(0, row, m[b:b + 1])
+        state.nu.index_copy_(0, row, v[b:b + 1])
+    return ExposureState(state.params, state.mu, state.nu, state.count + 1)
+
+
 def exposure_update(
     state: ExposureState,
     view_idx,  # int, or (B,) int tensor: one row per view of the step
@@ -48,32 +87,38 @@ def exposure_update(
     b2: float = 0.999,
     eps: float = 1e-15,
 ) -> ExposureState:
-    """Adam step on the stepped views' exposure rows (a new state; the
-    caller's tensors are not modified). A view twice in one batch (the
-    sampler's batch that straddles two epochs) gets both updates added to
-    its matrix and the later view's moments, as JAX's ``.at[].add`` and
-    ``.at[].set`` give them."""
-    count = state.count + 1
-    t = torch.tensor(float(count), dtype=torch.float32)
-    bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** t
-    bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** t
-    m = b1 * state.mu[view_idx] + (1 - b1) * grad
-    v = b2 * state.nu[view_idx] + (1 - b2) * grad * grad
-    update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-    params, mu, nu = state.params.clone(), state.mu.clone(), state.nu.clone()
-    if isinstance(view_idx, torch.Tensor) and view_idx.dim() == 1:
-        idx = view_idx.to(device=params.device, dtype=torch.long)
-        params.index_add_(0, idx, -lr * update)
-        # of equal indices the last one's moments stay: the others write to
-        # a spare row, so the result needs no host read and no write order
-        later = torch.triu(idx[:, None] == idx[None, :], diagonal=1).any(dim=1)
-        dst = torch.where(later, torch.full_like(idx, params.shape[0]), idx)
-        for moment, value in ((mu, m), (nu, v)):
-            spare = torch.cat([moment, moment[:1]])
-            spare.index_copy_(0, dst, value)
-            moment.copy_(spare[:-1])
-    else:
-        params[view_idx] += -lr * update
-        mu[view_idx] = m
-        nu[view_idx] = v
-    return ExposureState(params=params, mu=mu, nu=nu, count=count)
+    """``exposure_update_`` on a copy: a new state, the caller's tensors
+    left as they were (the JAX function's form; the tests' reference)."""
+    dev = state.params.device
+    new = ExposureState(state.params.clone(), state.mu.clone(), state.nu.clone(),
+                        state.count)
+    return exposure_update_(new, torch.as_tensor(view_idx, dtype=torch.long, device=dev),
+                            grad, scalars_tensor(bias_corrections(b1, b2, state.count + 1),
+                                                 dev), lr, b1, b2, eps)
+
+
+def make_exposure_update(lr: float = 0.001, capture: bool = True):
+    """The loop's exposure step, the counterpart of ``exposure_update_jit``:
+    ``update(state, view_idx, grad)`` -> the state after ``exposure_update_``,
+    ``view_idx`` a () or (B,) int64 tensor on the state's device. On CUDA it
+    replays a captured graph per B (the key: ``lr`` and the shapes of the
+    state, the index and the gradient); the returned state's tensors are the
+    graph's own buffers, updated in place by every replay, and another state
+    is copied in. ``capture=False``, or a CPU state, updates the given
+    tensors in place eagerly."""
+
+    def body(lr, params, mu, nu, scalars, idx, grad):
+        exposure_update_(ExposureState(params, mu, nu, 0), idx, grad, scalars, lr)
+
+    graphed = graph.capture(body, name="exposure_update") if capture else None
+
+    def update(state: ExposureState, view_idx: torch.Tensor, grad: torch.Tensor):
+        scalars = scalars_tensor(bias_corrections(0.9, 0.999, state.count + 1),
+                                 state.params.device)
+        if graphed is None or state.params.device.type != "cuda":
+            return exposure_update_(state, view_idx, grad, scalars, lr)
+        graphed(lr, state.params, state.mu, state.nu, scalars, view_idx, grad)
+        return ExposureState(*graphed.inputs[:3], state.count + 1)
+
+    update.captured = graphed
+    return update

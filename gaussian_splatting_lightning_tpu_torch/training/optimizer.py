@@ -84,15 +84,20 @@ def init_adam(params: GaussianParams) -> AdamState:
     return AdamState(count=0, mu=zeros(), nu=zeros())
 
 
+def bias_corrections(b1: float, b2: float, count: int) -> list:
+    """1 - b1^t and 1 - b2^t of Adam step ``count`` as float32 values, with
+    b^t taken in float32 (the JAX update's ``b ** count.astype(f32)``)."""
+    t = torch.tensor(float(count), dtype=torch.float32)
+    return [float(1.0 - torch.tensor(b, dtype=torch.float32) ** t) for b in (b1, b2)]
+
+
 def adam_scalars(schedules: Dict[str, Callable], cfg: OptimizerConfig, step,
                  count: int) -> list:
     """The step's host scalars, in float32 values: the six groups' learning
-    rates at ``step`` (``PARAM_NAMES`` order), then the bias corrections
-    1 - b1^t and 1 - b2^t of Adam step ``count``, with b^t taken in float32."""
-    t = torch.tensor(float(count), dtype=torch.float32)
-    bc1 = 1.0 - torch.tensor(cfg.beta1, dtype=torch.float32) ** t
-    bc2 = 1.0 - torch.tensor(cfg.beta2, dtype=torch.float32) ** t
-    return [schedules[name](step) for name in PARAM_NAMES] + [float(bc1), float(bc2)]
+    rates at ``step`` (``PARAM_NAMES`` order), then the bias corrections of
+    Adam step ``count`` (``bias_corrections``)."""
+    return ([schedules[name](step) for name in PARAM_NAMES]
+            + bias_corrections(cfg.beta1, cfg.beta2, count))
 
 
 def scalars_tensor(values, device) -> torch.Tensor:

@@ -4,10 +4,11 @@ Counterpart of ``gaussian_splatting_lightning_tpu/training/trainer.py`` on
 one device. One ``train_step`` is render -> loss -> backward -> Adam ->
 densification statistics, PyTorch around the kernels (K1 and K2 in the
 render, K5 in the loss and its backward, K3 and K4 in the render's
-backward). On the card the step, the eval step and the serving render
-(``make_render``) each replay a captured CUDA graph (``utils/graph.py``),
-the counterpart of the JAX package's ``jax.jit``; on the CPU, with
-``capture=False`` and on the ``plain`` and ``xla`` routes they run eagerly.
+backward). On the card the step, the eval step, the serving render
+(``make_render``) and the exposure update (``training/exposure.py``) each
+replay a captured CUDA graph (``utils/graph.py``), the counterpart of the
+JAX package's ``jax.jit``; on the CPU, with ``capture=False`` and on the
+``plain`` and ``xla`` routes they run eagerly.
 With ``batch_views`` B > 1 the step takes B views stacked along a leading
 axis and renders them in one pass (each kernel launched once for all B, as
 ``vmap`` gives the JAX kernels a batch grid axis); the loss is the mean over
@@ -68,8 +69,8 @@ from gaussian_splatting_lightning_tpu_torch.training.densify import (
 from gaussian_splatting_lightning_tpu_torch.training.exposure import (
     ExposureState,
     apply_exposure,
-    exposure_update,
     init_exposure,
+    make_exposure_update,
 )
 from gaussian_splatting_lightning_tpu_torch.training.loss import (
     photometric_loss,
@@ -217,6 +218,38 @@ def _camera_tensors(camera: Camera) -> list:
 
 N_SCENE = len(PARAM_NAMES) + 4  # parameters, alive, three statistics
 N_CAMERA = len(dataclasses.fields(Camera))
+
+
+def step_tensors(scene, adam, scalars, camera, image, background, exp_mat,
+                 depth_target) -> list:
+    """A donating step's inputs in capture order: the scene's tensors, Adam's
+    moments, the ``adam_scalars`` tensor, the camera's tensors, the targets
+    and, when given, ``exp_mat`` and ``depth_target``."""
+    return (_scene_tensors(scene) + [getattr(adam.mu, k) for k in PARAM_NAMES]
+            + [getattr(adam.nu, k) for k in PARAM_NAMES] + [scalars]
+            + _camera_tensors(camera) + [image, background]
+            + [x for x in (exp_mat, depth_target) if x is not None])
+
+
+def donated_state(t, active_sh_degree: int, count: int):
+    """The (scene, Adam state) whose tensors are the first ones of
+    ``step_tensors`` ``t``."""
+    n = len(PARAM_NAMES)
+    return (_scene_of(t[:N_SCENE], active_sh_degree),
+            AdamState(count, GaussianParams(*t[N_SCENE:N_SCENE + n]),
+                      GaussianParams(*t[N_SCENE + n:N_SCENE + 2 * n])))
+
+
+def step_args(t, active_sh_degree: int, has_exp: bool, has_depth: bool):
+    """``step_tensors`` ``t`` back as (scene, adam, scalars, camera, image,
+    background, exp_mat, depth_target), the absent ones None."""
+    scene, adam = donated_state(t, active_sh_degree, 0)
+    at = N_SCENE + 2 * len(PARAM_NAMES)
+    scalars, camera = t[at], Camera(*t[at + 1:at + 1 + N_CAMERA])
+    image, background, *rest = t[at + 1 + N_CAMERA:]
+    exp_mat = rest.pop(0) if has_exp else None
+    depth_target = rest.pop(0) if has_depth else None
+    return scene, adam, scalars, camera, image, background, exp_mat, depth_target
 
 
 def make_render(width: int, height: int, tiling: TilingConfig = TilingConfig(),
@@ -388,23 +421,9 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
         return (cfg, width, height, scene.active_sh_degree, exp_mat is not None,
                 depth_target is not None)
 
-    def inputs_of(scene, adam, scalars, camera, image, background, exp_mat, depth_target):
-        return (_scene_tensors(scene) + [getattr(adam.mu, k) for k in PARAM_NAMES]
-                + [getattr(adam.nu, k) for k in PARAM_NAMES] + [scalars]
-                + _camera_tensors(camera) + [image, background]
-                + [x for x in (exp_mat, depth_target) if x is not None])
-
     def body(static, *t):
-        *_, sh_degree, has_exp, has_depth = static
-        n = len(PARAM_NAMES)
-        scene = _scene_of(t[:N_SCENE], sh_degree)
-        adam = AdamState(0, GaussianParams(*t[N_SCENE:N_SCENE + n]),
-                         GaussianParams(*t[N_SCENE + n:N_SCENE + 2 * n]))
-        at = N_SCENE + 2 * n
-        scalars, camera = t[at], Camera(*t[at + 1:at + 1 + N_CAMERA])
-        image, background, *rest = t[at + 1 + N_CAMERA:]
-        exp_mat = rest.pop(0) if has_exp else None
-        depth_target = rest.pop(0) if has_depth else None
+        scene, adam, scalars, camera, image, background, exp_mat, depth_target = step_args(
+            t, *static[-3:])
         param_grads, screen_grads, exp_grad, radii, logs, stats = step_gradients(
             cfg, scene, camera, width, height, image, background, exp_mat,
             depth_target)
@@ -422,14 +441,11 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
         graph's buffers when captured) and the results are built on them."""
         scalars = scalars_tensor(adam_scalars(schedules, cfg.optimizer, step, adam.count + 1),
                                  scene.device)
-        inputs = inputs_of(scene, adam, scalars, camera, image, background, exp_mat,
-                           depth_target)
+        inputs = step_tensors(scene, adam, scalars, camera, image, background, exp_mat,
+                              depth_target)
         logs, exp_grad = run(static_of(scene, exp_mat, depth_target), *inputs)
-        buf = graphed.inputs if run is graphed else inputs
-        n = len(PARAM_NAMES)
-        scene = _scene_of(buf[:N_SCENE], scene.active_sh_degree)
-        adam = AdamState(adam.count + 1, GaussianParams(*buf[N_SCENE:N_SCENE + n]),
-                         GaussianParams(*buf[N_SCENE + n:N_SCENE + 2 * n]))
+        scene, adam = donated_state(graphed.inputs if run is graphed else inputs,
+                                    scene.active_sh_degree, adam.count + 1)
         if exp_mat is not None:
             return scene, adam, dict(logs), exp_grad
         return scene, adam, dict(logs)
@@ -444,7 +460,7 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
 
     def key(scene, adam, step, camera, image, background, exp_mat=None, depth_target=None):
         del step
-        return graph.graph_key(static_of(scene, exp_mat, depth_target), inputs_of(
+        return graph.graph_key(static_of(scene, exp_mat, depth_target), step_tensors(
             scene, adam, torch.empty(n_scalars), camera, image, background, exp_mat,
             depth_target))
 
@@ -540,14 +556,20 @@ class Trainer:
     Adam state, so a mesh run resumes in one process and the other way
     round. Validation renders the replicated scene on each rank, unsharded.
 
-    In one process on the card the step is the captured one
-    (``make_train_step``): after a step ``self.scene`` and ``self.adam`` are
-    the graph's own buffers. The events (densify, opacity reset, SH degree,
-    the NaN rollback, ``restore_checkpoint``) stay eager and give new
-    tensors, which the next step copies into those buffers; an SH degree
-    step or a budget growth changes the step's key and captures anew, where
-    the JAX trainer recompiles on a budget growth. Checkpoints read the
-    buffers. A mesh step runs eagerly.
+    On the card the step is the captured one (``make_train_step``; on an
+    NCCL mesh the sharded step, ``parallel/shard.py``): after a step
+    ``self.scene`` and ``self.adam`` are the graph's own buffers. With
+    ``use_exposure`` the exposure update replays a graph of its own after
+    the step (``make_exposure_update``), and ``self.exposure`` holds its
+    buffers. The events (densify, opacity reset, SH degree, the NaN
+    rollback, ``restore_checkpoint``) stay eager and give new tensors, which
+    the next step copies into those buffers (on a ZeRO-1 mesh after
+    ``_local_adam`` has cut this rank's rows); an SH degree step or a budget
+    growth changes the step's key and captures anew on every rank, where the
+    JAX trainer recompiles on a budget growth. Checkpoints and densify read
+    the buffers (on a mesh gathering Adam with eager collectives between
+    replays). A gloo mesh, the ``plain`` and ``xla`` routes and the CPU run
+    eagerly.
     """
 
     def __init__(
@@ -588,6 +610,7 @@ class Trainer:
         self.exposure: Optional[ExposureState] = None
         if cfg.use_exposure:
             self.exposure = init_exposure(len(self.train_views), device=self.device)
+            self._exposure_update = make_exposure_update(cfg.exposure_lr)
 
         h, w = self.train_views[0].image.shape[-2:]
         self.height, self.width = h, w
@@ -815,15 +838,17 @@ class Trainer:
             self.maybe_densify()
             view_idx, cam, img, bg, depth = self._step_inputs()
             extra = {} if depth is None else {"depth_target": depth}
+            exp_grad = None
             if self.exposure is not None:
                 self.scene, self.adam, logs, exp_grad = self._train_step(
                     self.scene, self.adam, self.step, cam, img, bg,
                     self.exposure.params[self._local(view_idx)], **extra)
-                self.exposure = exposure_update(self.exposure, view_idx, exp_grad,
-                                                self.cfg.exposure_lr)
             else:
                 self.scene, self.adam, logs = self._train_step(
                     self.scene, self.adam, self.step, cam, img, bg, **extra)
+            # the host reads the logs before the exposure graph replays:
+            # graphs that share the memory pool may overwrite each other's
+            # outputs
             host = None
             if self.step % check_interval == 0:
                 host = _host_floats(logs)
@@ -842,6 +867,10 @@ class Trainer:
                 if self.out_dir and self.is_writer:
                     with open(self.out_dir / "train_log.jsonl", "a") as f:
                         f.write(json.dumps(logs) + "\n")
+            if exp_grad is not None:
+                ids = view_idx if torch.is_tensor(view_idx) else self._view_ids[
+                    view_idx:view_idx + 1]
+                self.exposure = self._exposure_update(self.exposure, ids, exp_grad)
             self.step += 1
             # checkpoint AFTER the increment: a saved "step" is the next step
             # to run, so a restore replays the remaining trajectory exactly

@@ -23,6 +23,15 @@ replays it against eager there). What the graph runs is checked here:
   changes (a static int here, a traced array in JAX), and nowhere else.
 - ``capture`` refuses CPU tensors; the render and eval step built with
   capture on give the eager results on the CPU.
+- The sharded step on a ``Mesh`` built by hand (no process group, no
+  card): its capture key changes with the SH degree, the views per rank,
+  the exposure and depth inputs, the pair budget and the band tiling, and
+  with nothing else; it captures on an NCCL mesh on route "cuda" only.
+- ``exposure_update_`` (in place, the exposure graph's body), the eager
+  ``make_exposure_update`` and the out-of-place ``exposure_update`` against
+  JAX's ``exposure_update`` bit for bit, from a state carried across by
+  ``interop.exposure_from_numpy``: an int index, and (B,) indices with a
+  view repeated in one batch.
 """
 
 import dataclasses
@@ -41,8 +50,12 @@ from gaussian_splatting_lightning_tpu.training import exposure as jexposure
 from gaussian_splatting_lightning_tpu.training import optimizer as jopt
 from gaussian_splatting_lightning_tpu.training import schedule as jsched
 from gaussian_splatting_lightning_tpu.training import trainer as jtrainer
+from gaussian_splatting_lightning_tpu_torch import interop
+from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
 from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
 from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+from gaussian_splatting_lightning_tpu_torch.parallel import shard as tshard
+from gaussian_splatting_lightning_tpu_torch.parallel.mesh import Mesh
 from gaussian_splatting_lightning_tpu_torch.training import exposure as texposure
 from gaussian_splatting_lightning_tpu_torch.training import optimizer as topt
 from gaussian_splatting_lightning_tpu_torch.training import trainer as ttrainer
@@ -307,3 +320,93 @@ def test_captured_entry_points_run_eagerly_on_the_cpu():
     assert step.captured is not None and step.captured.captures == 0
     assert ttrainer.make_train_step(dataclasses.replace(cfg, rasterizer="plain"), 1.0, W,
                                     H).captured is None
+
+
+# ---- the sharded step's capture -------------------------------------------
+
+def hand_mesh(backend, view=1, tile=1):
+    """A ``Mesh`` as rank 0 sees it, built without a process group: the key
+    and the decision to capture are pure Python."""
+    return Mesh(grid=np.arange(view * tile).reshape(view, tile), rank=0,
+                device=torch.device("cpu"), backend=backend, groups={})
+
+
+def test_sharded_step_key_and_capture_decision():
+    cfg = ttrainer.TrainConfig(capacity=CAP, batch_views=2,
+                               tiling=TilingConfig(max_pairs=1 << 13, block=32))
+
+    def make(mesh=None, capture=True, **changes):
+        return tshard.make_sharded_train_step(dataclasses.replace(cfg, **changes), 1.0, W, H,
+                                              mesh or hand_mesh("nccl"), capture=capture)
+
+    step = make()
+    assert step.captured is not None and step.captured.collectives
+    assert step.captured.captures == 0
+    assert make(capture=False).captured is None
+    assert make(hand_mesh("gloo")).captured is None
+    for route in ("plain", "xla"):
+        assert make(rasterizer=route).captured is None
+
+    scene = port_scene(jax_scene(N, CAP, seed=3, scale=0.08, aniso=True))
+    assert scene.active_sh_degree > 0
+    adam = topt.init_adam(scene.params)
+    _, cams, tcams = ring_cameras(2)
+    imgs, bgs = torch.zeros(2, 3, H, W), torch.zeros(2, 3)
+
+    def key(fn=step, sc=scene, b=2, **kw):
+        cam = cams if b == 2 else stack_cameras(tcams[:1])
+        return fn.key(sc, adam, 0, cam, imgs[:b], bgs[:b], **kw)
+
+    base = key()
+    # the same shapes on other tensors, or another step number: the same key
+    assert key(sc=clone_scene(scene)) == base
+    assert step.key(scene, topt.init_adam(scene.params), 17, cams, imgs + 1, bgs) == base
+    variants = {
+        "sh_degree": key(sc=dataclasses.replace(scene, active_sh_degree=0)),
+        "b_local": key(b=1),
+        "exposure": key(exp_mat=torch.zeros(2, 3, 4)),
+        "depth": key(depth_target=torch.zeros(2, 1, H, W)),
+        "budget": key(make(tiling=TilingConfig(max_pairs=1 << 14, block=32))),
+        "band_tiling": key(make(hand_mesh("nccl", 1, 2))),
+    }
+    keys = [base] + list(variants.values())
+    assert len(set(keys)) == len(keys), variants
+    # the tile axis changes the band geometry the key holds
+    two = make(hand_mesh("nccl", 1, 2))
+    assert (two.gy_local, two.band_tiling) != (step.gy_local, step.band_tiling)
+
+
+# ---- the exposure update in place -----------------------------------------
+
+EXPOSURE_CASES = {"int": [2, 0, 2, 4], "batch-repeated": [[1, 3, 1], [0, 2, 2], [4, 4, 4]]}
+
+
+@pytest.mark.parametrize("case", list(EXPOSURE_CASES))
+def test_exposure_update_in_place_matches_jax(case):
+    rng = np.random.default_rng(4)
+    params = (np.eye(3, 4) + 0.05 * rng.normal(size=(5, 3, 4))).astype(np.float32)
+    mu = (0.01 * rng.normal(size=(5, 3, 4))).astype(np.float32)
+    nu = (1e-4 * rng.uniform(size=(5, 3, 4))).astype(np.float32)
+    js = jexposure.ExposureState(jnp.asarray(params), jnp.asarray(mu), jnp.asarray(nu),
+                                 jnp.asarray(7, jnp.int32))
+    ports = {name: interop.exposure_from_numpy(params, mu, nu, 7, device="cpu")
+             for name in ("in_place", "made", "out_of_place")}
+    given = ports["in_place"].params
+    made = texposure.make_exposure_update(0.01)
+    for idx in EXPOSURE_CASES[case]:
+        g = (0.1 * rng.normal(size=np.shape(idx) + (3, 4))).astype(np.float32)
+        js = jexposure.exposure_update(js, idx if np.ndim(idx) == 0 else jnp.asarray(idx),
+                                       jnp.asarray(g), 0.01)
+        ti, tg = torch.tensor(idx), torch.from_numpy(g)
+        st = ports["in_place"]
+        scalars = topt.scalars_tensor(topt.bias_corrections(0.9, 0.999, st.count + 1), "cpu")
+        ports["in_place"] = texposure.exposure_update_(st, ti, tg, scalars, 0.01)
+        ports["made"] = made(ports["made"], ti, tg)
+        ports["out_of_place"] = texposure.exposure_update(ports["out_of_place"], idx, tg, 0.01)
+    assert ports["in_place"].params is given  # written into the state's own tensors
+    assert made.captured.captures == 0  # the CPU runs it eagerly
+    for name, st in ports.items():
+        assert st.count == int(js.count) == 7 + len(EXPOSURE_CASES[case]), name
+        for f in ("params", "mu", "nu"):
+            np.testing.assert_array_equal(getattr(st, f).numpy(), np.asarray(getattr(js, f)),
+                                          err_msg=f"{name}.{f}")

@@ -16,6 +16,13 @@
 - The ``Trainer`` on the captured step: a NaN loss rolls back to the last
   checkpoint and carries on; a run resumed from a checkpoint logs the
   uninterrupted run's losses within 1e-6.
+- The sharded step on a 1x1 NCCL mesh in this process (two views a step,
+  exposure, ZeRO-1 Adam) captured and replayed for 5 steps against 5 eager
+  steps (``capture=False``) from the same start: one capture, K1-K4 once
+  and K5 twice a replay, every loss, parameter and moment the same bits.
+- The exposure graph (``make_exposure_update``) against the eager
+  ``exposure_update``, bit for bit, for one view, three views and three
+  with one repeated.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. On the
 card:
@@ -243,3 +250,97 @@ def test_trainer_rollback_and_resume_under_capture(scene, tmp_path):
     rolled.train()
     assert rolled._nan_rollbacks == 1 and rolled.step > 10  # resumed from ckpt-10
     assert all(math.isfinite(h["loss"]) for h in rolled.history)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def test_captured_mesh_step_equals_eager_on_nccl(scene):
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        make_sharded_train_step,
+    )
+    from gaussian_splatting_lightning_tpu_torch.parallel.shard import shard_adam
+
+    cams = ring_cams(2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    imgs = torch.rand(2, 3, H, W, device="cuda", generator=gen)
+    bgs = torch.rand(2, 3, device="cuda", generator=gen)
+    cfg = trainer.TrainConfig(tiling=TILING, batch_views=2, capacity=scene.capacity,
+                              use_exposure=True)
+    info = init_distributed("cuda", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{free_port()}")
+    steps, state = {}, {}
+    try:
+        mesh = make_mesh(1, 1, info=info)
+        assert mesh.backend == "nccl"
+        steps.update(eager=make_sharded_train_step(cfg, 1.0, W, H, mesh, capture=False),
+                     captured=make_sharded_train_step(cfg, 1.0, W, H, mesh))
+        assert steps["eager"].captured is None and steps["captured"].sharded_adam
+        state.update({k: {"scene": clone_scene(scene),
+                          "adam": shard_adam(init_adam(scene.params), mesh),
+                          "exp": texposure.init_exposure(3, device="cuda"), "loss": [],
+                          "exp_grad": []} for k in steps})
+        for t in range(5):
+            idx = [t % 3, (t + 1) % 3]
+            args = [stack_cameras([cams[j % 2] for j in idx]), imgs[[j % 2 for j in idx]], bgs]
+            for name, fn in steps.items():
+                st = state[name]
+                _build.reset_launch_counts()
+                scene_t, adam, logs, exp_grad = fn(st["scene"], st["adam"], t, *args,
+                                                   st["exp"].params[idx])
+                torch.cuda.synchronize()
+                runs = 2 if name == "captured" and t == 0 else 1  # warm-up, then a replay
+                assert dict(_build.launches) == {k: runs * n for k, n in STEP_KERNELS.items()}
+                st["scene"], st["adam"] = scene_t, adam
+                st["loss"].append(float(logs["loss"]))
+                st["exp_grad"].append(exp_grad.clone())
+                assert int(logs["num_dropped_pairs"]) == 0
+                st["exp"] = texposure.exposure_update(
+                    st["exp"], torch.tensor(idx, device="cuda"), exp_grad, 0.001)
+        cap, eag = state["captured"], state["eager"]
+        assert steps["captured"].captured.captures == 1
+        assert cap["loss"] == eag["loss"]
+        assert all(torch.equal(a, b) for a, b in zip(cap["exp_grad"], eag["exp_grad"]))
+        for k in PARAM_NAMES:
+            for get in (lambda s: s["scene"].params, lambda s: s["adam"].mu,
+                        lambda s: s["adam"].nu):
+                assert torch.equal(getattr(get(cap), k), getattr(get(eag), k)), k
+        for k in ("max_radii2d", "grad_accum", "grad_count"):
+            assert torch.equal(getattr(cap["scene"], k), getattr(eag["scene"], k)), k
+        assert cap["adam"].count == eag["adam"].count == 5
+        buf = steps["captured"].captured.inputs
+        assert cap["scene"].params.xyz.data_ptr() == buf[0].data_ptr()
+    finally:
+        steps.clear()  # the step's graph goes before the communicators it uses
+        state.clear()
+        dist.destroy_process_group()
+
+
+def test_exposure_graph_equals_eager(scene):
+    del scene  # the fixture only skips without a card
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    start = texposure.init_exposure(6, device="cuda")
+    start.params += 0.05 * torch.randn(start.params.shape, device="cuda", generator=gen)
+    for idxs in ([[4]] * 4, [[0, 3, 5], [1, 2, 3], [5, 0, 4]], [[2, 5, 2], [1, 1, 1]]):
+        update = texposure.make_exposure_update(0.01)
+        eager = captured = dataclasses.replace(
+            start, params=start.params.clone(), mu=start.mu.clone(), nu=start.nu.clone())
+        for idx in idxs:
+            ids = torch.tensor(idx, device="cuda")
+            grad = 0.1 * torch.randn(len(idx), 3, 4, device="cuda", generator=gen)
+            eager = texposure.exposure_update(eager, ids, grad, 0.01)
+            captured = update(captured, ids, grad)
+        assert update.captured.captures == 1
+        assert captured.params.data_ptr() == update.captured.inputs[0].data_ptr()
+        assert captured.count == eager.count == len(idxs)
+        for f in ("params", "mu", "nu"):
+            assert torch.equal(getattr(captured, f), getattr(eager, f)), (idxs, f)

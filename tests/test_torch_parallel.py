@@ -73,7 +73,7 @@ from tests.test_torch_train_cli import scene_dir, write_config  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 RANKS = 4
-TASKS = ("coords", "loss", "render", "steps", "seam", "trainer")
+TASKS = ("coords", "loss", "render", "steps", "seam", "donate", "trainer")
 WORKER_TIMEOUT = 300
 JAX_ROUTE = {"plain": "pallas_interpret", "xla": "xla"}
 
@@ -262,6 +262,33 @@ def test_seam_needs_the_reduce_scatter_backward(ranks):
     assert_step_matches_jax(res, f"steps/{case[0]}", want, case)
 
 
+@pytest.mark.parametrize("case", mw.DONATE_CASES, ids=lambda c: c[0])
+def test_sharded_donating_step_matches_out_of_place(case, ranks):
+    """The donating body of the sharded step (``in_place``, run eagerly: the
+    graph an NCCL mesh captures) for ``DONATE_STEPS`` steps against the
+    out-of-place eager step from the same start, ZeRO-1 on (2, 2) with
+    exposure and depth and replicated on (1, 4): every log at every step,
+    the exposure gradients, the parameters, Adam's moments and the
+    statistics after the last step the same bits on every rank (the same
+    operations in the same order, written into the given tensors), and the
+    donating step's scene the tensors it was given."""
+    name, _, cap, exposure, _ = case
+    res = ranks.results()
+    same_on_every_rank(res, f"donate/{name}/")
+    key = f"donate/{name}"
+    assert bool(res[0][f"{key}/sharded_adam"]) == (cap % RANKS == 0)
+    for r in res:
+        keys = [k for k in r if k.startswith(f"{key}/out/")]
+        assert any("/exp_grad/" in k for k in keys) == exposure
+        assert len(keys) >= 3 * len(PARAM_NAMES) + 9
+        for k in keys:
+            if not k.endswith("same_tensors"):
+                np.testing.assert_array_equal(r[k.replace("/out/", "/in/")], r[k], err_msg=k)
+        assert int(r[f"{key}/in/count"]) == mw.DONATE_STEPS
+        assert r[f"{key}/in/same_tensors"].all()
+        assert not r[f"{key}/out/same_tensors"].any()
+
+
 # ---- the band loss ----------------------------------------------------------
 
 def test_band_loss_partials_match_jax(ranks):
@@ -440,6 +467,31 @@ def test_train_cli_refuses_a_mesh_in_one_process(scene_dir, tmp_path):
     for sets in (["mesh_view=2"], ["mesh_tile=1"]):
         with pytest.raises(ValueError, match="torch.distributed.run"):
             port_cli.main(["-c", str(cfg), "--device", "cpu", "--set", sets[0]])
+
+
+def test_train_cli_joins_a_one_rank_torchrun_job(monkeypatch):
+    """Under torchrun (its environment: ``MASTER_ADDR``, ``MASTER_PORT``,
+    ``RANK``, ``WORLD_SIZE`` 1) the CLI's ``mesh_view=1``, ``mesh_tile=1``
+    is a 1x1 mesh, the job of ``--nproc-per-node 1``; without torchrun's
+    environment the same config refuses (``test_train_cli_refuses_a_mesh_in_one_process``)."""
+    import socket
+    import types
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(k, v)
+    mesh, device = port_cli.build_mesh(types.SimpleNamespace(mesh_view=1, mesh_tile=1), "cpu")
+    try:
+        assert dist.get_world_size() == 1 and device.type == "cpu"
+        assert (mesh.shape, mesh.rank, mesh.backend) == ({"view": 1, "tile": 1}, 0, "gloo")
+        assert float(mesh.all_reduce(torch.ones(1), "world")) == 1.0
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_cli_under_torchrun_matches_one_process_cli(scene_dir, tmp_path):

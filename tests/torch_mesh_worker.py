@@ -11,7 +11,8 @@ torch thread, and each rank writes what it computed to
 (scene, cameras, targets) is built here from numpy seeds; the test builds
 the JAX side from the same functions.
 
-Tasks: ``coords``, ``loss``, ``render``, ``steps``, ``seam``, ``trainer``.
+Tasks: ``coords``, ``loss``, ``render``, ``steps``, ``seam``, ``donate``,
+``trainer``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,14 @@ STEP_CASES = (
     ("xla-1x4-rep", (1, 4), "xla", 126, False, False),
 )
 SEAM_CASE = STEP_CASES[2]
+# (name, mesh, capacity, exposure, depth): the sharded step's donating body
+# (``in_place``, run eagerly: what an NCCL mesh captures) against the
+# out-of-place step, DONATE_STEPS steps from the same start on route "plain"
+DONATE_CASES = (
+    ("2x2-zero-exp-depth", (2, 2), 128, True, True),
+    ("1x4-rep", (1, 4), 126, False, False),
+)
+DONATE_STEPS = 3
 TRAINER_MESH = (2, 2)
 TRAINER_STEPS = 5
 
@@ -277,6 +286,60 @@ def task_seam(info, out):
         run_step_case(info, out, SEAM_CASE, "seam")
     finally:
         shard._GatherShards.backward = real
+
+
+def task_donate(info, out):
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
+    from gaussian_splatting_lightning_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from gaussian_splatting_lightning_tpu_torch.parallel.shard import gather_adam, shard_adam
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
+
+    for name, (v, t), cap, exposure, depth in DONATE_CASES:
+        mesh = make_mesh(view=v, tile=t, info=info)
+        step = make_sharded_train_step(step_config("plain", cap, exposure, depth), 4.0, W, H,
+                                       mesh)
+        images, depth_t, exp = targets()
+        b = BATCH // v
+        rows = slice(mesh.axis_index("view") * b, (mesh.axis_index("view") + 1) * b)
+        args = (stack_cameras(port_cameras()[rows]), torch.from_numpy(images[rows]),
+                torch.zeros(b, 3))
+        kw = {}
+        if exposure:
+            kw["exp_mat"] = torch.from_numpy(exp[rows])
+        if depth:
+            kw["depth_target"] = torch.from_numpy(depth_t[rows])
+        key = f"donate/{name}"
+        for side, fn in (("out", step), ("in", step.in_place)):
+            scene = port_scene(cap)
+            adam = init_adam(scene.params)
+            if step.sharded_adam:
+                adam = shard_adam(adam, mesh)
+            given = [getattr(scene.params, k) for k in PARAM_NAMES] + [scene.grad_accum]
+            logs = {}
+            for i in range(DONATE_STEPS):
+                res = fn(scene, adam, i, *args, **kw)
+                scene, adam = res[:2]
+                for k, val in res[2].items():
+                    logs.setdefault(k, []).append(float(val))
+                if exposure:
+                    out[f"{key}/{side}/exp_grad/{i}"] = res[3].numpy()
+            for k, val in logs.items():
+                out[f"{key}/{side}/log/{k}"] = np.array(val)
+            whole = gather_adam(adam, mesh) if step.sharded_adam else adam
+            for k in PARAM_NAMES:
+                out[f"{key}/{side}/param/{k}"] = getattr(scene.params, k).numpy()
+                out[f"{key}/{side}/mu/{k}"] = getattr(whole.mu, k).numpy()
+                out[f"{key}/{side}/nu/{k}"] = getattr(whole.nu, k).numpy()
+            for k in ("grad_accum", "grad_count", "max_radii2d"):
+                out[f"{key}/{side}/{k}"] = getattr(scene, k).numpy()
+            out[f"{key}/{side}/count"] = np.asarray(adam.count)
+            now = [getattr(scene.params, k) for k in PARAM_NAMES] + [scene.grad_accum]
+            out[f"{key}/{side}/same_tensors"] = np.asarray(
+                [a.data_ptr() == b.data_ptr() for a, b in zip(given, now)])
+        out[f"{key}/sharded_adam"] = np.asarray(step.sharded_adam)
 
 
 def task_trainer(info, out, out_dir):

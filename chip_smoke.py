@@ -2315,27 +2315,26 @@ def phase9_nccl(scene, budget):
     (what ``Trainer(mesh=…)`` runs), the eager one (``capture=False``) and
     phase 5's captured one-process step, TRAIN_STEPS + 1 steps each from the
     same start on the bench view."""
-    import gc
     import socket
 
-    import torch
-    import torch.distributed as dist
-
-    from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
+    from gaussian_splatting_lightning_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        shutdown,
+    )
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     info = init_distributed("cuda", rank=0, world_size=1, init_method=f"tcp://localhost:{port}")
+    mesh = None
     try:
         mesh = make_mesh(1, 1, info=info)
         if mesh.backend != "nccl":
             fail(f"phase 9: a 1x1 mesh on one card chose {mesh.backend}")
         row, graph_line, launches = nccl_runs(scene, budget, mesh)
     finally:
-        gc.collect()  # the steps' graphs go before the communicators they use
-        torch.cuda.synchronize()
-        dist.destroy_process_group()
+        shutdown(mesh)  # the steps' graphs go before the communicators they use
     print("mesh_1x1: " + json.dumps(row), flush=True)
     print_graph_line("9 mesh_1x1", **graph_line)
     if not row["loss_rel_err"] <= MESH_LOSS_TOL or row["dropped"]:
@@ -2743,23 +2742,13 @@ def loop_record(trainer, rec, launches) -> dict:
 def mesh_cli_rank(out_path: str, argv) -> int:
     """(d) The train CLI's ``main`` on this rank under torchrun, recorded by
     ``record_loop``; writes the numbers to ``out_path``."""
-    import gc
-
-    import torch
-    import torch.distributed as dist
-
     from gaussian_splatting_lightning_tpu_torch.ops import _build
     from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
 
     _build.reset_launch_counts()
     with record_loop(MESH_NCCL_WINDOW) as rec:
-        trainer = train_cli.main(argv)
-    row = loop_record(trainer, rec, dict(_build.launches))
-    del trainer
-    gc.collect()  # the step's graph goes before the communicators it uses
-    torch.cuda.synchronize()
-    Path(out_path).write_text(json.dumps(row))
-    dist.destroy_process_group()
+        trainer = train_cli.main(argv)  # it leaves the job (parallel.shutdown)
+    Path(out_path).write_text(json.dumps(loop_record(trainer, rec, dict(_build.launches))))
     return 0
 
 

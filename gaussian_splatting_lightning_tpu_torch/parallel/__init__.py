@@ -4,6 +4,7 @@ from gaussian_splatting_lightning_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     init_distributed,
     make_mesh,
+    shutdown,
 )
 from gaussian_splatting_lightning_tpu_torch.parallel.shard import (  # noqa: F401
     batch_cameras,

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -129,13 +130,16 @@ class Mesh:
     other coordinate) and the world group, and the collectives over them.
 
     A collective names its axis: "tile", "view" or "world" (both axes).
-    Every collective is out of place and returns a new tensor."""
+    Every collective is out of place and returns a new tensor. ``graphs``
+    holds, weakly, the captured graphs whose collectives run on these
+    groups, for ``shutdown``."""
 
     grid: np.ndarray  # (view, tile) ranks
     rank: int
     device: torch.device
     backend: str
     groups: dict  # axis name -> ProcessGroup
+    graphs: weakref.WeakSet = dataclasses.field(default_factory=weakref.WeakSet, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -186,6 +190,23 @@ class Mesh:
 
     def barrier(self) -> None:
         dist.barrier(group=self.groups["world"])
+
+
+def shutdown(*meshes: Optional[Mesh]) -> None:
+    """Leave the job: release every captured graph built on ``meshes`` (a
+    graph that holds NCCL collectives must go before its communicators do),
+    wait for the card, then destroy the process group. It releases the
+    graphs themselves, so it keeps that order on an error path too, where a
+    traceback still holds the steps. Every rank calls it; a None mesh (one
+    not built yet) is skipped, and without a process group it destroys
+    nothing."""
+    for mesh in filter(None, meshes):
+        for captured in list(mesh.graphs):
+            captured.release()
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def make_mesh(view: int = 1, tile: Optional[int] = None,

@@ -288,12 +288,14 @@ class ShardedTrainStep:
     per-view band ``num_pairs`` and ``num_dropped_pairs``.
 
     On an NCCL mesh on the kernel route (``rasterizer: cuda``) every call
-    replays a captured graph of the whole step (``utils/graph.py`` with
-    ``collectives=True``), the counterpart of the JAX step's
+    replays a captured graph of the whole step (``utils/graph.py``), the
+    counterpart of the JAX step's
     ``jax.jit(shard_map(...), donate_argnums=(0, 1))``. The choice is made
     here, once: gloo's collectives run on the host and cannot be captured,
     and the tiled route's member table reads the host, so a gloo mesh and
     the ``plain`` and ``xla`` routes run eagerly, as does ``capture=False``.
+    The mesh keeps a weak reference to the graph, so that ``shutdown(mesh)``
+    releases it before the process group its collectives use.
     The key is the config, the image size, the mesh shape, the band geometry
     (``gy_local``, ``band_tiling``), ``sharded_adam``, the active SH degree,
     whether ``exp_mat`` and ``depth_target`` are given and the inputs'
@@ -324,13 +326,14 @@ class ShardedTrainStep:
         self.band_tiling = band_tiling(cfg.tiling, self.n_tile)
         self.band_stats: dict = {}
         capture = capture and mesh.backend == "nccl" and self.route == "cuda"
-        # the graph holds the step weakly: dropping the step releases its
-        # graph at once, before the process group its collectives use can be
-        # destroyed
-        body = weakref.WeakMethod(self._body)
-        self.captured = graph.capture(lambda static, *t: body()(static, *t),
-                                      name="sharded_train_step",
-                                      collectives=True) if capture else None
+        self.captured = None
+        if capture:
+            # the graph holds the step weakly: no reference cycle keeps the
+            # graph and its memory once the step is dropped
+            body = weakref.WeakMethod(self._body)
+            self.captured = graph.capture(lambda static, *t: body()(static, *t),
+                                          name="sharded_train_step")
+            mesh.graphs.add(self.captured)  # for shutdown(mesh)
 
     def __call__(self, scene: GaussianScene, adam: AdamState, step, cameras: Camera,
                  images, backgrounds, exp_mat=None, depth_target=None):

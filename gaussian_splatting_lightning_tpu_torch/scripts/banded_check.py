@@ -43,7 +43,6 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
               device="cuda") -> dict:
     """Run the three checks; returns the record (``ok`` and the numbers)."""
     import torch
-    import torch.distributed as dist
 
     from gaussian_splatting_lightning_tpu_torch import interop
     from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
@@ -51,7 +50,11 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
     from gaussian_splatting_lightning_tpu_torch.ops.budget import pair_budget
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig, preprocess
     from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize
-    from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
+    from gaussian_splatting_lightning_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        shutdown,
+    )
     from gaussian_splatting_lightning_tpu_torch.parallel.shard import (
         make_sharded_train_step,
         shard_adam,
@@ -126,6 +129,7 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
     ref_loss = float(logs["loss"])
     info = init_distributed(dev.type, rank=0, world_size=1,
                             init_method=f"tcp://localhost:{_free_port()}")
+    mesh = None
     try:
         mesh = make_mesh(view=1, tile=1, info=info)
         step = make_sharded_train_step(tcfg, 2.0, w, h, mesh)
@@ -134,9 +138,8 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
             adam = shard_adam(adam, mesh)
         _, _, logs = step(scene, adam, 0, stack_cameras([cam]), target, bgs)
         loss = float(logs["loss"])
-        del step, adam, logs  # the step's graph goes before the communicators it uses
     finally:
-        dist.destroy_process_group()
+        shutdown(mesh)  # the step's graph goes before the communicators it uses
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
     print(f"sharded 1x1 step ({info.backend}): loss={loss:.6f}, one process "
           f"{ref_loss:.6f} ({loss_err:.2e} relative)")

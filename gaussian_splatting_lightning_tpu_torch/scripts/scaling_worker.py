@@ -49,7 +49,11 @@ def main(argv=None) -> None:
     from gaussian_splatting_lightning_tpu_torch import interop
     from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
-    from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
+    from gaussian_splatting_lightning_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        shutdown,
+    )
     from gaussian_splatting_lightning_tpu_torch.parallel.shard import (
         make_sharded_train_step,
         shard_adam,
@@ -110,7 +114,7 @@ def main(argv=None) -> None:
     dist.all_gather_object(every, rec)
     if info.rank == 0:
         Path(args.out).write_text(json.dumps(every))
-    dist.destroy_process_group()
+    shutdown(mesh)
 
 
 if __name__ == "__main__":

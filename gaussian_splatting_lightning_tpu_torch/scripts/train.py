@@ -94,7 +94,9 @@ def load_views(d, holdout_every_default: int = 8):
 
 
 def main(argv=None):
-    """Run training; returns the ``Trainer`` after its final validation."""
+    """Run training; returns the ``Trainer`` after its final validation. A
+    rank of a mesh leaves the job (``parallel.shutdown``) before it returns
+    or raises."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("--seed", type=int, default=None)
@@ -112,13 +114,8 @@ def main(argv=None):
                         help="cuda (the kernels) or cpu (their plain versions)")
     args = parser.parse_args(argv)
 
-    from gaussian_splatting_lightning_tpu_torch.data.nerf import random_init_points
-    from gaussian_splatting_lightning_tpu_torch.models import from_points, save_ply
+    from gaussian_splatting_lightning_tpu_torch.parallel import shutdown
     from gaussian_splatting_lightning_tpu_torch.training.config import load_config
-    from gaussian_splatting_lightning_tpu_torch.training.trainer import (
-        Trainer,
-        find_resume_checkpoint,
-    )
 
     cfg = load_config(args.config, overrides=args.set)
     if args.seed is not None:
@@ -127,6 +124,23 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                                  num_iters=args.iters))
     mesh, device = build_mesh(cfg, args.device)
+    try:
+        return run(args, cfg, mesh, device)
+    finally:
+        if mesh is not None:  # the graphs go first, on an error path too
+            shutdown(mesh)
+
+
+def run(args, cfg, mesh, device):
+    """Train on this rank (``mesh`` None: one process); returns the
+    ``Trainer`` after its final validation."""
+    from gaussian_splatting_lightning_tpu_torch.data.nerf import random_init_points
+    from gaussian_splatting_lightning_tpu_torch.models import from_points, save_ply
+    from gaussian_splatting_lightning_tpu_torch.training.trainer import (
+        Trainer,
+        find_resume_checkpoint,
+    )
+
     rank0 = mesh is None or mesh.rank == 0
     say = print if rank0 else (lambda *a: None)
 
@@ -182,11 +196,14 @@ def main(argv=None):
 def build_mesh(cfg, device):
     """(mesh or None, this rank's device). A mesh (``mesh_view`` > 1 or a
     ``mesh_tile``) needs the ranks that torchrun starts; several ranks with
-    no mesh asked would each train alone, so both refuse."""
-    import torch.distributed as dist
-
+    no mesh asked would each train alone, so both refuse. With a mesh the
+    caller leaves the job with ``parallel.shutdown(mesh)``."""
     from gaussian_splatting_lightning_tpu_torch.device import resolve_device
-    from gaussian_splatting_lightning_tpu_torch.parallel import init_distributed, make_mesh
+    from gaussian_splatting_lightning_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        shutdown,
+    )
 
     asked = cfg.mesh_tile is not None or cfg.mesh_view > 1
     # torchrun's rendezvous (it sets MASTER_ADDR) joins a job of one rank too
@@ -198,10 +215,14 @@ def build_mesh(cfg, device):
                              f"one process per rank: launch with {LAUNCH}")
         return None, resolve_device(device)
     if not asked:
-        dist.destroy_process_group()
+        shutdown()
         raise ValueError(f"{info.world_size} ranks but no mesh asked: set mesh_view "
                          "and/or mesh_tile")
-    mesh = make_mesh(view=cfg.mesh_view, tile=cfg.mesh_tile, info=info)
+    try:
+        mesh = make_mesh(view=cfg.mesh_view, tile=cfg.mesh_tile, info=info)
+    except BaseException:
+        shutdown()
+        raise
     if mesh.rank == 0:
         print(f"mesh: view={mesh.shape['view']} x tile={mesh.shape['tile']} "
               f"({mesh.size} devices)")
@@ -215,13 +236,4 @@ def build_mesh(cfg, device):
 
 
 if __name__ == "__main__":
-    import gc
-
-    import torch.distributed as dist
-
-    try:
-        main()
-    finally:
-        if dist.is_initialized():
-            gc.collect()  # the step's graph goes before the communicators it uses
-            dist.destroy_process_group()
+    main()

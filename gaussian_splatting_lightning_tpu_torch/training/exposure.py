@@ -97,25 +97,24 @@ def exposure_update(
                                                  dev), lr, b1, b2, eps)
 
 
-def make_exposure_update(lr: float = 0.001, capture: bool = True):
+def make_exposure_update(lr: float = 0.001):
     """The loop's exposure step, the counterpart of ``exposure_update_jit``:
     ``update(state, view_idx, grad)`` -> the state after ``exposure_update_``,
     ``view_idx`` a () or (B,) int64 tensor on the state's device. On CUDA it
     replays a captured graph per B (the key: ``lr`` and the shapes of the
     state, the index and the gradient); the returned state's tensors are the
     graph's own buffers, updated in place by every replay, and another state
-    is copied in. ``capture=False``, or a CPU state, updates the given
-    tensors in place eagerly."""
+    is copied in. A CPU state is updated in place eagerly."""
 
     def body(lr, params, mu, nu, scalars, idx, grad):
         exposure_update_(ExposureState(params, mu, nu, 0), idx, grad, scalars, lr)
 
-    graphed = graph.capture(body, name="exposure_update") if capture else None
+    graphed = graph.capture(body, name="exposure_update")
 
     def update(state: ExposureState, view_idx: torch.Tensor, grad: torch.Tensor):
         scalars = scalars_tensor(bias_corrections(0.9, 0.999, state.count + 1),
                                  state.params.device)
-        if graphed is None or state.params.device.type != "cuda":
+        if state.params.device.type != "cuda":
             return exposure_update_(state, view_idx, grad, scalars, lr)
         graphed(lr, state.params, state.mu, state.nu, scalars, view_idx, grad)
         return ExposureState(*graphed.inputs[:3], state.count + 1)

@@ -27,15 +27,16 @@ every later call with that key:
 - ``ops/_build.launches`` counts a launch where a wrapper makes it. A capture
   launches nothing, so the counts it records are taken back and added again
   on every replay: the counts stay the launches the card ran.
-- ``collectives=True`` captures a function that runs NCCL collectives (the
-  mesh step): the warm-up has then issued every collective the capture
-  records, on every group, so each communicator exists before the capture
-  (one may be created only at its first use, which cannot be captured);
-  the card finishes the warm-up's collectives before the capture begins;
-  and the capture runs in ``thread_local`` error mode, so that
-  ProcessGroupNCCL's watchdog thread, which polls its collectives' events,
-  does not invalidate it. Every rank captures the same collectives in the
-  same order as long as its key changes where the other ranks' do.
+- Every capture may record NCCL collectives (the mesh step). The warm-up
+  has then issued every collective the capture records, on every group, so
+  each communicator exists before the capture (one may be created only at
+  its first use, which cannot be captured); the card finishes the warm-up
+  before the capture begins; and the capture runs in ``thread_local`` error
+  mode, so that ProcessGroupNCCL's watchdog thread, which polls its
+  collectives' events, does not invalidate it. Every rank captures the same
+  collectives in the same order as long as its key changes where the other
+  ranks' do. A graph that holds collectives must be released before its
+  process group is destroyed: ``parallel.shutdown`` does both.
 
 Only CUDA tensors are captured: a CPU input raises, and so does a failed
 capture. Nothing here falls back to eager; callers run eagerly only where
@@ -89,10 +90,9 @@ class Captured:
     module docstring. ``capture_s`` holds the seconds of the last warm-up
     plus capture, ``captures`` how many captures were made."""
 
-    def __init__(self, fn: Callable, name: str | None = None, collectives: bool = False):
+    def __init__(self, fn: Callable, name: str | None = None):
         self.fn = fn
         self.name = name or getattr(fn, "__name__", "fn")
-        self.collectives = collectives
         self.captures = 0
         self.capture_s = 0.0
         self._entry: _Entry | None = None
@@ -106,6 +106,10 @@ class Captured:
     def launches(self) -> dict:
         """Kernel launches per replay of the current graph."""
         return {} if self._entry is None else dict(self._entry.launches)
+
+    def release(self) -> None:
+        """Drop the current graph (the next call captures anew)."""
+        self._entry = None
 
     def __call__(self, static: Hashable, *tensors: torch.Tensor):
         for i, t in enumerate(tensors):
@@ -137,14 +141,12 @@ class Captured:
         torch.cuda.current_stream().wait_stream(side)
         for buf, t in zip(inputs, tensors):  # undo what a donating warm-up wrote
             buf.copy_(t)
-        if self.collectives:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         before = dict(_build.launches)
         stream = torch.cuda.current_stream()
-        mode = "thread_local" if self.collectives else "global"
         try:
-            with torch.cuda.graph(graph, pool=_memory_pool(), capture_error_mode=mode):
+            with torch.cuda.graph(graph, pool=_memory_pool(), capture_error_mode="thread_local"):
                 outputs = self.fn(static, *inputs)
         except Exception as err:
             _recover(stream)
@@ -171,9 +173,8 @@ def _recover(stream) -> None:
     _pool = _anchor = None
 
 
-def capture(fn: Callable, name: str | None = None, collectives: bool = False) -> Captured:
+def capture(fn: Callable, name: str | None = None) -> Captured:
     """``fn(static, *tensors)`` as a ``Captured`` callable: the first call
     with a key warms up, captures and replays; later calls with that key
-    copy their inputs in and replay. ``collectives``: ``fn`` runs NCCL
-    collectives (see the module docstring)."""
-    return Captured(fn, name, collectives)
+    copy their inputs in and replay."""
+    return Captured(fn, name)

@@ -339,11 +339,12 @@ def test_sharded_step_key_and_capture_decision():
         return tshard.make_sharded_train_step(dataclasses.replace(cfg, **changes), 1.0, W, H,
                                               mesh or hand_mesh("nccl"), capture=capture)
 
-    step = make()
-    assert step.captured is not None and step.captured.collectives
-    assert step.captured.captures == 0
+    nccl, gloo = hand_mesh("nccl"), hand_mesh("gloo")
+    step = make(nccl)
+    assert step.captured is not None and step.captured.captures == 0
+    assert list(nccl.graphs) == [step.captured]  # for shutdown(mesh)
     assert make(capture=False).captured is None
-    assert make(hand_mesh("gloo")).captured is None
+    assert make(gloo).captured is None and len(gloo.graphs) == 0
     for route in ("plain", "xla"):
         assert make(rasterizer=route).captured is None
 

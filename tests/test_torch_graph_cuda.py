@@ -20,6 +20,11 @@
   exposure, ZeRO-1 Adam) captured and replayed for 5 steps against 5 eager
   steps (``capture=False``) from the same start: one capture, K1-K4 once
   and K5 twice a replay, every loss, parameter and moment the same bits.
+- With four cards: the sharded step on four NCCL ranks (one per card,
+  ``tests/torch_nccl_worker.py`` under torchrun), meshes (1, 4) and (2, 2),
+  captured against eager for 5 steps: one capture a mesh, every rank's
+  losses, exposure gradients, parameters, Adam rows and statistics the same
+  bits, and the replicated parameters the same on every rank.
 - The exposure graph (``make_exposure_update``) against the eager
   ``exposure_update``, bit for bit, for one view, three views and three
   with one repeated.
@@ -34,6 +39,9 @@ This file imports no JAX: the machine with the card has none.
 
 import dataclasses
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -261,12 +269,11 @@ def free_port() -> int:
 
 
 def test_captured_mesh_step_equals_eager_on_nccl(scene):
-    import torch.distributed as dist
-
     from gaussian_splatting_lightning_tpu_torch.parallel import (
         init_distributed,
         make_mesh,
         make_sharded_train_step,
+        shutdown,
     )
     from gaussian_splatting_lightning_tpu_torch.parallel.shard import shard_adam
 
@@ -278,7 +285,7 @@ def test_captured_mesh_step_equals_eager_on_nccl(scene):
                               use_exposure=True)
     info = init_distributed("cuda", rank=0, world_size=1,
                             init_method=f"tcp://localhost:{free_port()}")
-    steps, state = {}, {}
+    steps, state, mesh = {}, {}, None
     try:
         mesh = make_mesh(1, 1, info=info)
         assert mesh.backend == "nccl"
@@ -320,9 +327,42 @@ def test_captured_mesh_step_equals_eager_on_nccl(scene):
         buf = steps["captured"].captured.inputs
         assert cap["scene"].params.xyz.data_ptr() == buf[0].data_ptr()
     finally:
-        steps.clear()  # the step's graph goes before the communicators it uses
-        state.clear()
-        dist.destroy_process_group()
+        shutdown(mesh)  # the step's graph goes before the communicators it uses
+
+
+def test_captured_mesh_step_equals_eager_on_four_nccl_ranks(scene, tmp_path):
+    del scene  # the fixture only skips without a card
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: one NCCL rank each")
+    _build.build()  # once, before the ranks load the kernels
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "4", str(root / "tests" / "torch_nccl_worker.py"), str(tmp_path)],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
+    bad = []
+    for mesh in ("1x4", "2x2"):
+        for r, got in enumerate(ranks):
+            if int(got[f"{mesh}/captures"]) != 1:
+                bad.append((mesh, r, "captures", int(got[f"{mesh}/captures"])))
+            for key, val in got.items():
+                if key.startswith(f"{mesh}/captured/"):
+                    want = got[key.replace("/captured/", "/eager/")]
+                    if not np.array_equal(val, want):
+                        err = float(np.abs(val.astype(np.float64) - want).max())
+                        bad.append((mesh, r, key, err))
+                if "/dropped/" in key and int(val):
+                    bad.append((mesh, r, key, int(val)))
+            for k in PARAM_NAMES:
+                key = f"{mesh}/captured/param/{k}"
+                if not np.array_equal(got[key], ranks[0][key]):
+                    bad.append((mesh, r, key, "differs from rank 0"))
+            names = set(got[f"{mesh}/launch_names"].tolist())
+            if names != set(STEP_KERNELS):
+                bad.append((mesh, r, "launches", sorted(names)))
+    assert not bad, bad[:20]
 
 
 def test_exposure_graph_equals_eager(scene):

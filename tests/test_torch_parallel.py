@@ -494,6 +494,52 @@ def test_train_cli_joins_a_one_rank_torchrun_job(monkeypatch):
         dist.destroy_process_group()
 
 
+def test_train_cli_releases_graphs_before_the_process_group_when_train_raises(
+        scene_dir, tmp_path, monkeypatch):
+    """A rank whose ``Trainer.train`` raises still leaves the job through
+    ``parallel.shutdown``: the captured graphs registered on its mesh are
+    released before ``destroy_process_group`` runs, although the traceback
+    still holds them (a graph of NCCL collectives must not outlive its
+    communicators). A gloo mesh captures nothing, so ``train`` registers a
+    stand-in graph on the mesh, as ``ShardedTrainStep`` does on NCCL."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch.utils import graph
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(k, v)
+    cfg = tmp_path / "cfg.yaml"
+    write_config(cfg, scene_dir, tmp_path / "runs")
+    held, at_destroy = [], []
+
+    def failing_train(self):
+        captured = graph.Captured(lambda static: None, name="stand_in")
+        captured._entry = graph._Entry(("key",), None, [], None, {})
+        self.mesh.graphs.add(captured)
+        held.append(captured)
+        raise RuntimeError("the step failed")
+
+    destroy = dist.destroy_process_group
+
+    def recorded_destroy(*args, **kwargs):
+        at_destroy.append([c.inputs for c in held])
+        return destroy(*args, **kwargs)
+
+    monkeypatch.setattr(Trainer, "train", failing_train)
+    monkeypatch.setattr(dist, "destroy_process_group", recorded_destroy)
+    with pytest.raises(RuntimeError, match="the step failed"):
+        port_cli.main(["-c", str(cfg), "--device", "cpu", "--set", "mesh_view=1",
+                       "--set", "mesh_tile=1"])
+    assert at_destroy == [[None]]  # one destroy, after the graph was released
+    assert not dist.is_initialized()
+
+
 def test_train_cli_under_torchrun_matches_one_process_cli(scene_dir, tmp_path):
     """``torch.distributed.run --nproc-per-node 4`` with mesh (2, 2) against
     the one-process CLI at ``batch_views=2``: 20 steps through two densify

@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA H100, and of its mesh
+on four.
 
-Run from the repository root with no arguments:
+Run from the repository root with no arguments (one card: phases 1-10):
 
     python3 chip_smoke.py
+
+or on a machine with four cards (the probe, then phase 11 alone; with
+fewer than four cards it exits non-zero):
+
+    python3 chip_smoke.py --cards 4
 
 Phases (any failure exits non-zero):
   1. probe: the card's name and power limit, CUDA and nvcc versions; build
@@ -148,6 +154,39 @@ Phases (any failure exits non-zero):
      (``capture=False``), since a replay calls no wrapper. The headline's
      step is also timed in this process captured and eager, with the
      device's busy time and idle share.
+  11. (``--cards 4`` only) the mesh on four cards, one NCCL rank per card,
+     each part a ``torch.distributed.run`` job with a time limit (a rank
+     that takes another decision hangs its job, which then fails). (a) The
+     bench scene of phases 5 and 8 on phase 3's four views at 1920x1080,
+     meshes (1, 4), (2, 2) and (4, 1) (this script with ``--mesh4-steps``):
+     first the per-band budget (``band_tiling``: ``pair_budget``'s
+     2,523,136 over the band count) with each band's pairs and drops, grown
+     as the ``Trainer`` grows it while a band drops; then TRAIN_STEPS + 1
+     steps captured and as many with ``capture=False`` from the same start:
+     equal bit for bit on every rank (losses, parameters, the rank's ZeRO-1
+     Adam rows, statistics), the same scene on every rank, one capture,
+     K1-K4 once and K5 twice a replay, the first loss within 1e-5 and the
+     gradients within 1e-4 of the one-process step on the same four views,
+     0 pairs dropped; bands 1 and 3 of (1, 4) hold every K1-K5 call to its
+     plain version (``BAND_TOL``); per rank the wall per step (synced; each
+     step the slowest rank's), CUDA-event ms, device busy and idle share
+     (NCCL's kernel time apart: it overlaps the compute), capture seconds
+     and peak memory above what was held, beside the captured one-process
+     step's wall on the four views (``mesh4_rank`` lines, ``mesh4_steps:``). (b) The train CLI on (2, 2) and (1, 4)
+     (``--mesh4-cli``) at phase 6's point cut to 80 steps (MESH4_CLI_SETS:
+     densify at 20 and 40, the opacity reset at 50, SH steps at 25, 50, 75,
+     a budget check every 10 steps, checkpoints at 50 and 80): after every
+     event, checkpoint, restore and at the end a digest of each rank's
+     scene, all-gathered and equal; every rank capturing at the same steps;
+     logged losses within 2e-4 and alive counts equal to the one-process
+     CLI's at the same global batch; then (2, 2)'s step-50 checkpoint
+     resumed on four ranks (losses within 1e-6 of the uninterrupted run)
+     and in one process (2e-4) (``mesh4_cli_row``, ``mesh4_cli_resume:``).
+     (c) ``benchmark_scaling --meshes 1x1,1x2,1x4,2x2`` on the cards (no
+     shared card; eff columns null exactly when a row or the first drops)
+     and ``scripts/dryrun_multichip.py`` on four NCCL ranks (its three OK
+     lines; ``mesh4_scaling:``). Then each card's name and power limit.
+     Without ``--cards 4`` one line says that phase 11 was not run.
 
 Phases 3, 5, 8 and 10 print a ``graph:`` line: the capture's seconds, and
 for the captured and the eager path each the host wall and CUDA-event ms a
@@ -303,11 +342,16 @@ def profile_render(render, wall_ms: float, reps: int = 5, unit: str = "render"):
               "activity)", flush=True)
         return
     rows.sort(key=lambda r: -r[1])
+    nccl = [r for r in rows if "nccl" in r[0].lower()]
     row = {
         f"wall_ms_per_{unit}": wall_ms, f"device_busy_ms_per_{unit}": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         f"device_kernels_per_{unit}": sum(r[2] for r in rows),
         "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in rows[:12]],
+        # collectives: NCCL's kernels run on a stream of their own and wait
+        # in the kernel for the slowest rank, so they overlap the compute
+        f"device_nccl_ms_per_{unit}": sum(r[1] for r in nccl),
+        "nccl_kernels_ms": [[k[:60], ms, n] for k, ms, n in nccl],
     }
     print("profile: " + json.dumps(row), flush=True)
     counts = {}
@@ -343,6 +387,8 @@ def graph_side(fn, reps: int, unit: str, peak: int, kernel_launches: dict) -> di
     return {"wall_ms": wall, "event_ms": event,
             "busy_ms": prof.get(f"device_busy_ms_per_{unit}"),
             "idle_share": prof.get("device_idle_share"),
+            "nccl_ms": prof.get(f"device_nccl_ms_per_{unit}"),
+            "nccl_kernels_ms": prof.get("nccl_kernels_ms"),
             "device_launches": prof.get(f"device_kernels_per_{unit}"),
             "kernel_launches": kernel_launches, "peak_mem_added_bytes": peak}
 
@@ -2911,14 +2957,14 @@ def bench_graph_line() -> dict:
     return print_graph_line("10 bench headline", capture_s, sides["captured"], sides["eager"])
 
 
-def run_cli(module: str, *args, timeout: int):
+def run_cli(module: str, *args, timeout: int, phase: str = "phase 10"):
     """``python -m <port>.scripts.<module> args`` on the card; returns its
     stdout lines, its stderr and its wall seconds. A non-zero exit fails."""
     t0 = time.perf_counter()
     rc, out, err = run_group(["-m", f"{PKG}.scripts.{module}", *args], timeout,
-                             f"phase 10 ({module})", stderr=subprocess.PIPE)
+                             f"{phase} ({module})", stderr=subprocess.PIPE)
     if rc != 0:
-        fail(f"phase 10: {module} exited {rc}:\n{out[-3000:]}\n{err[-6000:]}")
+        fail(f"{phase}: {module} exited {rc}:\n{out[-3000:]}\n{err[-6000:]}")
     return out.strip().splitlines(), err, time.perf_counter() - t0
 
 
@@ -3016,11 +3062,608 @@ def phase10() -> dict:
                             for name in BAND_TOL}
 
 
+# phase 11: the mesh on four H100s, one NCCL rank per card, at full width
+# (``--cards 4``): the problems of phases 3, 5, 6 and 10, no new sizes
+MESH4_CARDS = 4
+MESH4_SHAPES = ((1, 4), (2, 2), (4, 1))
+MESH4_BUDGET = 2_523_136  # phase 3's pair_budget over its four views
+MESH4_JOB_S = 900  # each torchrun job's limit: a rank-divergent decision hangs
+# (b): phase 6's point (LOOP_SETS) cut to 80 steps across two densify events
+# at threshold 0 (20 and 40), the opacity reset at 50, three SH degree
+# steps, a budget check every 10 steps and checkpoints at 50 and 80
+MESH4_CLI_SHAPES = ((2, 2), (1, 4))
+MESH4_CLI_SETS = {
+    "train.num_iters": 80, "train.densify.densify_since": 19,
+    "train.densify.densify_interval": 20, "train.densify.densify_until": 41,
+    "train.densify.densify_grad_threshold": 0.0,
+    "train.densify.opacity_reset_interval": 50,
+    "train.densify.sh_degree_step_interval": 25, "train.log_interval": 10,
+    "train.overflow_check_interval": 10, "train.checkpoint_interval": 50,
+    "train.valid_interval": 1000,
+}
+MESH4_RESUME = 50
+MESH4_SCALING = "1x1,1x2,1x4,2x2"
+
+
+def gpu_lines() -> list:
+    """Every card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+
+
+def placement(info) -> dict:
+    """This rank's card and whether it allocated on any other card (each
+    rank must set its device before its first allocation)."""
+    import torch
+
+    others = [d for d in range(torch.cuda.device_count()) if d != info.device.index
+              and torch.cuda.memory_allocated(d)]
+    return {"device": str(info.device), "current": torch.cuda.current_device(),
+            "allocated_elsewhere": others}
+
+
+def scene_digest(scene) -> str:
+    """SHA-256 of a scene's parameters, alive mask and statistics."""
+    import hashlib
+
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
+
+    h = hashlib.sha256()
+    for t in [getattr(scene.params, k) for k in PARAM_NAMES] + [
+            scene.alive, scene.max_radii2d, scene.grad_accum, scene.grad_count]:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh4_steps_rank(out_path: str) -> int:
+    """(a) One NCCL rank under torchrun: for each mesh of MESH4_SHAPES the
+    sharded step on the four views of phase 3 at the per-band budget
+    (grown as the ``Trainer`` grows it while a band drops), MESH4 steps
+    captured and eager from the same start against the one-process step;
+    rank 0 writes every rank's numbers to ``out_path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+    from gaussian_splatting_lightning_tpu_torch.ops.budget import pair_budget
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        shutdown,
+    )
+    from gaussian_splatting_lightning_tpu_torch.training import trainer
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
+
+    info = init_distributed("cuda")
+    meshes = []
+    try:
+        w, h, blk = 1920, 1080, 32
+        scene = interop.synthetic_scene(1_000_000, 1_000_000, sh_degree=3, scale=0.008)
+        cams = orbit_cameras(w, h)
+        budget = pair_budget(scene, cams, w, h, blk)
+        targets = torch.from_numpy(np.random.default_rng(0).uniform(
+            size=(len(cams), 3, h, w)).astype(np.float32)).cuda()
+        bgs = torch.zeros(len(cams), 3, device="cuda")
+        # the reference: the one-process step on the whole batch, eager; and
+        # its captured step's wall on this card, the time the mesh divides
+        cfg1 = trainer.TrainConfig(tiling=TilingConfig(max_pairs=budget, block=blk),
+                                   batch_views=len(cams))
+        one = trainer.make_train_step(cfg1, 1.0, w, h, capture=False)
+        _, adam1, logs1 = one(scene, init_adam(scene.params), 0, stack_cameras(cams),
+                              targets, bgs)
+        ref = {"loss": float(logs1["loss"]), "dropped": int(logs1["num_dropped_pairs"]),
+               "num_pairs": int(logs1["num_pairs"]), "budget": budget}
+        ref_mu = adam1.mu
+        del one, adam1, logs1
+        one = trainer.make_train_step(cfg1, 1.0, w, h)
+        st = [scene, init_adam(scene.params)]
+        walls = []
+        for i in range(1 + TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st[0], st[1], _ = one(st[0], st[1], i, stack_cameras(cams), targets, bgs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ref["captured_step_wall_ms_median"] = sorted(walls[1:])[TRAIN_STEPS // 2]
+        del one, st
+        torch.cuda.empty_cache()
+        rows = {"rank": info.rank, "backend": info.backend, "ref": ref}
+        for v, t in MESH4_SHAPES:
+            meshes.append(make_mesh(v, t, info=info))
+            rows[f"{v}x{t}"] = mesh4_shape(meshes[-1], scene, cams, targets, bgs, budget,
+                                           ref, ref_mu)
+            torch.cuda.empty_cache()
+        rows["placement"] = placement(info)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, rows)
+        if info.rank == 0:
+            Path(out_path).write_text(json.dumps(every))
+    finally:
+        shutdown(*meshes)  # the steps' graphs go before the communicators
+    return 0
+
+
+def mesh4_shape(mesh, scene, cams, targets, bgs, budget, ref, ref_mu) -> dict:
+    """(a) on one mesh: this rank's row (see ``mesh4_steps_rank``)."""
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch.core.camera import stack_cameras
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
+        PARAM_NAMES,
+        GaussianParams,
+    )
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.parallel.shard import (
+        make_sharded_train_step,
+        shard_adam,
+    )
+    from gaussian_splatting_lightning_tpu_torch.training import trainer
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
+
+    w, h = targets.shape[-1], targets.shape[-2]
+    v, t = mesh.shape["view"], mesh.shape["tile"]
+    b = len(cams) // v
+    rows = slice(mesh.axis_index("view") * b, (mesh.axis_index("view") + 1) * b)
+    args = (stack_cameras(cams[rows]), targets[rows], bgs[rows])
+
+    def config(max_pairs):
+        return trainer.TrainConfig(tiling=TilingConfig(max_pairs=max_pairs, block=32),
+                                   capacity=scene.capacity, batch_views=b)
+
+    def start():
+        return {"scene": scene, "adam": shard_adam(init_adam(scene.params), mesh), "step": 0}
+
+    def band(step):
+        return {k: [int(x) for x in val] for k, val in step.band_stats.items()}
+
+    # the JAX rule gives each band max_pairs / n_tile; where a band drops,
+    # the Trainer doubles max_pairs (its check reads the drops summed over
+    # the mesh) until none does
+    growth, max_pairs = [], budget
+    while True:
+        probe = make_sharded_train_step(config(max_pairs), 1.0, w, h, mesh, capture=False)
+        st = start()
+        _, _, logs = probe(st["scene"], st["adam"], 0, *args)
+        growth.append({"max_pairs": max_pairs, "band_max_pairs": probe.band_tiling.max_pairs,
+                       "dropped": int(logs["num_dropped_pairs"]),
+                       "num_pairs": int(logs["num_pairs"]), **band(probe)})
+        del probe, st, logs
+        if not growth[-1]["dropped"] or len(growth) == 4:
+            break
+        max_pairs *= 2
+    cfg = config(max_pairs)
+    steps = {"eager": make_sharded_train_step(cfg, 1.0, w, h, mesh, capture=False),
+             "captured": make_sharded_train_step(cfg, 1.0, w, h, mesh)}
+    check = (v, t) == (1, 4) and mesh.axis_index("tile") in MESH_CHECK_TILES
+    runs, band_kernels = {}, None
+    for name, fn in steps.items():
+        st = start()
+
+        def one_step(fn=fn, st=st):
+            st["scene"], st["adam"], logs = fn(st["scene"], st["adam"], st["step"], *args)
+            st["step"] += 1
+            return logs
+
+        torch.cuda.synchronize()
+        mesh.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        record = check and name == "eager"
+        with record_kernel_calls() if record else contextlib.nullcontext() as calls:
+            logs = one_step()
+            torch.cuda.synchronize()
+        if record:  # this band's launches against the plain versions
+            k1 = calls["expand_pairs"][0][0] if calls["expand_pairs"] else (None,) * 5
+            band_kernels = {"tile_y_offset": k1[4], "band_max_pairs": k1[1],
+                            "want_offset": mesh.axis_index("tile") * fn.gy_local,
+                            **band_kernel_errs(calls)}
+            del calls, k1
+        losses, dropped = [float(logs["loss"])], int(logs["num_dropped_pairs"])
+        bands = band(fn)
+        # Adam's first moments after step 0, whole: (1 - beta1) x the gradient
+        mu0 = GaussianParams(**{k: mesh.all_gather(getattr(st["adam"].mu, k), "world")
+                                for k in PARAM_NAMES})
+        _build.reset_launch_counts()
+        walls = []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            mesh.barrier()
+            t0 = time.perf_counter()
+            logs = one_step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(logs["loss"]))
+            dropped += int(logs["num_dropped_pairs"])
+        runs[name] = dict(st=st, one_step=one_step, losses=losses, walls=walls, bands=bands,
+                          dropped=dropped, launches=dict(_build.launches),
+                          peak=torch.cuda.max_memory_allocated() - held,
+                          grad_rel_err=moment_errs(mu0, ref_mu))
+        del mu0
+    cap, eag = runs["captured"], runs["eager"]
+    bits = {"losses": cap["losses"] == eag["losses"]}
+    for part in ("params", "mu", "nu"):
+        for k in PARAM_NAMES:
+            get = ((lambda r, k=k: getattr(r["st"]["scene"].params, k)) if part == "params"
+                   else (lambda r, k=k, part=part: getattr(getattr(r["st"]["adam"], part), k)))
+            bits[f"{part}.{k}"] = torch.equal(get(cap), get(eag))
+    for k in ("max_radii2d", "grad_accum", "grad_count"):
+        bits[k] = torch.equal(getattr(cap["st"]["scene"], k), getattr(eag["st"]["scene"], k))
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, scene_digest(cap["st"]["scene"]))
+    # every step's wall is the slowest rank's
+    walls = [None] * dist.get_world_size()
+    dist.all_gather_object(walls, [cap["walls"], eag["walls"]])
+    slowest = {side: [max(r[i][j] for r in walls) for j in range(TRAIN_STEPS)]
+               for i, side in enumerate(("captured", "eager"))}
+    sides = {name: graph_side(runs[name]["one_step"], 5, "step", runs[name]["peak"],
+                              runs[name]["launches"]) for name in ("captured", "eager")}
+    row = {
+        "view": mesh.axis_index("view"), "tile": mesh.axis_index("tile"), "views": b,
+        "gy_local": steps["captured"].gy_local, "growth": growth, "max_pairs": max_pairs,
+        "band_max_pairs": steps["captured"].band_tiling.max_pairs,
+        "band_num_pairs": cap["bands"]["num_pairs"],
+        "band_dropped": cap["bands"]["num_dropped_pairs"],
+        "dropped": cap["dropped"] + eag["dropped"],
+        "loss": cap["losses"][0], "loss_rel_err": abs(cap["losses"][0] - ref["loss"])
+        / abs(ref["loss"]), "grad_rel_err": cap["grad_rel_err"],
+        "captured_vs_eager_bits_equal": bits, "scene_digests_equal": len(set(digests)) == 1,
+        "captures": steps["captured"].captured.captures,
+        "capture_s": steps["captured"].captured.capture_s,
+        "step_wall_ms": {k: runs[k]["walls"] for k in runs},
+        "slowest_rank_wall_ms": slowest,
+        "slowest_rank_wall_ms_median": {k: sorted(x)[TRAIN_STEPS // 2]
+                                        for k, x in slowest.items()},
+        "graph": sides, "band_kernels": band_kernels}
+    del runs, steps, cap, eag
+    return row
+
+
+def phase11_steps(work: Path) -> dict:
+    """(a) The sharded step on four NCCL ranks for each mesh of
+    MESH4_SHAPES; returns each mesh's launches per replay on every rank."""
+    t0 = time.perf_counter()
+    out = work / "mesh4_steps.json"
+    rc, text, _ = run_group(TORCHRUN + ["--nproc-per-node", str(MESH4_CARDS),
+                                        str(ROOT / "chip_smoke.py"), "--mesh4-steps",
+                                        str(out)], MESH4_JOB_S, "phase 11 (a)")
+    if rc != 0 or not out.exists():
+        fail(f"phase 11 (a): the ranks exited {rc}:\n{text[-12000:]}")
+    ranks = json.loads(out.read_text())
+    summary = {"launch_s": time.perf_counter() - t0, "ref": ranks[0]["ref"]}
+    bad = [r["rank"] for r in ranks if r["backend"] != "nccl" or r["ref"]["dropped"]
+           or r["ref"]["budget"] != MESH4_BUDGET or r["placement"]["allocated_elsewhere"]
+           or r["placement"]["current"] != r["rank"]]
+    if bad:
+        fail(f"phase 11 (a): ranks {bad}: backend, budget, reference drops or placement "
+             f"{[(r['backend'], r['ref'], r['placement']) for r in ranks]}")
+    launches = {}
+    for shape in (f"{v}x{t}" for v, t in MESH4_SHAPES):
+        rows = [dict(r[shape], rank=r["rank"]) for r in ranks]
+        for r in rows:
+            print(f"mesh4_rank {shape}: " + json.dumps(r), flush=True)
+        want = {k: TRAIN_STEPS * n for k, n in BENCH_STEP_LAUNCHES.items()}
+        bad = {r["rank"]: r for r in rows if not (
+            all(r["captured_vs_eager_bits_equal"].values()) and r["scene_digests_equal"]
+            and r["captures"] == 1 and r["graph"]["captured"]["kernel_launches"] == want
+            and r["loss_rel_err"] <= MESH_LOSS_TOL and r["dropped"] == 0
+            and not any(r["band_dropped"])
+            and all(e <= MESH_GRAD_TOL for e in r["grad_rel_err"].values()))}
+        if bad:
+            fail(f"phase 11 (a), mesh {shape}: ranks {sorted(bad)} fail their checks: "
+                 f"{json.dumps(bad)[:6000]}")
+        checked = {r["rank"]: r["band_kernels"] for r in rows if r["band_kernels"]}
+        bad = {k: c for k, c in checked.items() if not (
+            c["tile_y_offset"] == c["want_offset"] > 0
+            and all(c[n]["calls"] >= (2 if n == "blur" else 1) and c[n]["err"] <= tol
+                    for n, tol in BAND_TOL.items()))}
+        if bad or len(checked) != (len(MESH_CHECK_TILES) if shape == "1x4" else 0):
+            fail(f"phase 11 (a), mesh {shape}: band kernels against plain {checked}")
+        launches[shape] = [{k: n // TRAIN_STEPS for k, n in
+                            r["graph"]["captured"]["kernel_launches"].items()} for r in rows]
+        side = {k: {s: [r["graph"][s][k] for r in rows] for s in ("captured", "eager")}
+                for k in ("wall_ms", "event_ms", "busy_ms", "idle_share", "nccl_ms",
+                          "peak_mem_added_bytes")}
+        # the idle share of the compute: NCCL's kernels overlap it
+        side["compute_idle_share"] = {s: [
+            None if g["busy_ms"] is None else 1 - (g["busy_ms"] - g["nccl_ms"]) / g["wall_ms"]
+            for g in (r["graph"][s] for r in rows)] for s in ("captured", "eager")}
+        summary[shape] = {
+            "growth": rows[0]["growth"], "max_pairs": rows[0]["max_pairs"],
+            "band_max_pairs": rows[0]["band_max_pairs"],
+            "band_num_pairs": {f"{r['view']},{r['tile']}": r["band_num_pairs"] for r in rows},
+            "slowest_rank_wall_ms_median": rows[0]["slowest_rank_wall_ms_median"],
+            "speedup_over_one_process": ranks[0]["ref"]["captured_step_wall_ms_median"]
+            / rows[0]["slowest_rank_wall_ms_median"]["captured"],
+            "nccl_kernels_ms_rank0": rows[0]["graph"]["captured"]["nccl_kernels_ms"],
+            "capture_s": [r["capture_s"] for r in rows],
+            "loss_rel_err_max": max(r["loss_rel_err"] for r in rows),
+            "grad_rel_err_max": max(max(r["grad_rel_err"].values()) for r in rows),
+            "launches_per_replay": launches[shape], **side}
+        if checked:
+            summary[shape]["band_kernels"] = checked
+    print("mesh4_steps: " + json.dumps(summary), flush=True)
+    return launches
+
+
+def mesh4_cli_rank(out_path: str, argv) -> int:
+    """(b) The train CLI's ``main`` on this rank under torchrun: every
+    graph's captures by step (``record_loop``), and after every event
+    (densify, opacity reset, SH degree step), checkpoint, restore and at the
+    end of ``train`` a digest of the scene, all-gathered and compared at
+    once (a rank that holds other bits stops the job). Writes this rank's
+    numbers to ``out_path`` + ``.rank<r>.json``."""
+    import torch.distributed as dist
+
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
+    from gaussian_splatting_lightning_tpu_torch.training import trainer as tr
+
+    digests = []
+
+    def check(self, what):
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, scene_digest(self.scene))
+        digests.append({"step": self.step, "what": what, "equal": len(set(every)) == 1})
+        if len(set(every)) != 1:
+            raise RuntimeError(f"step {self.step} ({what}): the ranks' scenes differ: {every}")
+
+    orig = {k: getattr(tr.Trainer, k) for k in ("maybe_densify", "save_checkpoint",
+                                                 "restore_checkpoint", "train")}
+
+    def maybe_densify(self):
+        before = self.scene
+        orig["maybe_densify"](self)
+        if self.scene is not before:  # an event gave a new scene
+            check(self, "event")
+
+    def hook(name):
+        def hooked(self, *args, **kw):
+            out = orig[name](self, *args, **kw)
+            check(self, name)
+            return out
+        return hooked
+
+    patched = dict(maybe_densify=maybe_densify, **{k: hook(k) for k in (
+        "save_checkpoint", "restore_checkpoint", "train")})
+    _build.reset_launch_counts()
+    try:
+        for k, fn in patched.items():
+            setattr(tr.Trainer, k, fn)
+        with record_loop(()) as rec:
+            trainer = train_cli.main(argv)  # it leaves the job (parallel.shutdown)
+    finally:
+        for k, fn in orig.items():
+            setattr(tr.Trainer, k, fn)
+    hist = [{k: r[k] for k in ("step", "loss", "n_gaussians", "num_dropped_pairs",
+                               "num_pairs", "elapsed_s")} for r in trainer.history]
+    Path(f"{out_path}.rank{trainer.mesh.rank}.json").write_text(json.dumps({
+        "rank": trainer.mesh.rank, "backend": trainer.mesh.backend,
+        "device": str(trainer.device), "step": type(trainer._train_step).__name__,
+        "history": hist, "digests": digests,
+        "captures_s_by_step": {name: {str(s): sec for s, sec in by_step.items()}
+                               for name, by_step in rec["captures"].items()},
+        "max_pairs": trainer.cfg.tiling.max_pairs, "launches": dict(_build.launches)}))
+    return 0
+
+
+def mesh4_cli(argv, out_dir: Path, shape, what: str, resume=None) -> list:
+    """One torchrun job of the train CLI on four ranks (``mesh4_cli_rank``;
+    ``resume``: the CLI's resume arguments); returns the ranks' records
+    after the cross-rank checks."""
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+
+    v, t = shape
+    out = out_dir / "rank"
+    t0 = time.perf_counter()
+    rc, text, _ = run_group(
+        TORCHRUN + ["--nproc-per-node", str(MESH4_CARDS), str(ROOT / "chip_smoke.py"),
+                    "--mesh4-cli", str(out)] + argv
+        + ["--out-dir", str(out_dir), "--set", f"mesh_view={v}", "--set", f"mesh_tile={t}"]
+        + (resume or []), MESH4_JOB_S, f"phase 11 (b) {what}")
+    ranks = [json.loads(Path(f"{out}.rank{r}.json").read_text())
+             for r in range(MESH4_CARDS) if Path(f"{out}.rank{r}.json").exists()]
+    if rc != 0 or len(ranks) != MESH4_CARDS:
+        fail(f"phase 11 (b) {what}: the ranks exited {rc}:\n{text[-12000:]}")
+    r0 = ranks[0]
+    bad = [r["rank"] for r in ranks if not (
+        r["backend"] == "nccl" and r["step"] == "ShardedTrainStep"
+        and r["device"] == f"cuda:{r['rank']}" and all(d["equal"] for d in r["digests"])
+        and [d["step"] for d in r["digests"]] == [d["step"] for d in r0["digests"]]
+        and r["captures_s_by_step"].keys() == r0["captures_s_by_step"].keys()
+        and all(r["captures_s_by_step"][g].keys() == r0["captures_s_by_step"][g].keys()
+                for g in r0["captures_s_by_step"])
+        and same_logs(r["history"], r0["history"]) and r["max_pairs"] == r0["max_pairs"]
+        and all(r["launches"][k] >= 1 for k in _build.SOURCES))]
+    if bad:
+        fail(f"phase 11 (b) {what}: ranks {bad} differ or miss a check: "
+             f"{json.dumps(ranks)[:6000]}")
+    r0["job_s"] = time.perf_counter() - t0
+    return ranks
+
+
+def same_logs(a, b) -> bool:
+    """Two ranks' logs equal but for the wall clock."""
+    def drop(h):
+        return [{k: v for k, v in r.items() if k != "elapsed_s"} for r in h]
+    return drop(a) == drop(b)
+
+
+def loss_diff(got, want) -> float:
+    """The largest relative difference of two runs' losses at the steps both
+    logged (the one-process run logs the same steps)."""
+    want = {r["step"]: r["loss"] for r in want}
+    return max(abs(r["loss"] - want[r["step"]]) / want[r["step"]] for r in got)
+
+
+def phase11_cli(work: Path) -> dict:
+    """(b) The train CLI under torchrun on four cards, meshes (2, 2) and
+    (1, 4), at phase 6's point cut to 80 steps (MESH4_CLI_SETS), each
+    against the one-process CLI with the same global batch; then the (2, 2)
+    run's step-50 checkpoint resumed on four ranks and in one process."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.core.camera import camera_from_matrices
+    from gaussian_splatting_lightning_tpu_torch.models import from_points
+    from gaussian_splatting_lightning_tpu_torch.ops.budget import pair_budget
+    from gaussian_splatting_lightning_tpu_torch.scripts import train as train_cli
+    from gaussian_splatting_lightning_tpu_torch.training.config import load_config
+
+    w, h = 1920, 1080
+    scene_dir = work / "scene"
+    write_loop_scene(scene_dir, w, h)
+    config = ROOT / "configs" / "rehearsal_synthetic.yaml"
+    sets = dict(LOOP_SETS, **MESH4_CLI_SETS, **{
+        "data.colmap_path": str(scene_dir), "data.image_folder": str(scene_dir / "images")})
+    cfg = load_config(str(config), [f"{k}={v}" for k, v in sets.items()])
+    train_views, _, xyz, rgb, _ = train_cli.load_views(cfg.data)
+    init = from_points(xyz, rgb, capacity=len(xyz), sh_degree=cfg.sh_degree)
+    est = pair_budget(init, [camera_from_matrices(v.viewmatrix, v.projmatrix, v.campos,
+                                                  v.tanfovx, v.tanfovy) for v in train_views],
+                      w, h)
+    # phase 9 (c)'s budget: 8 x phase 6's start (half the init estimate); no
+    # budget may drop, so that both runs render every pair
+    sets["train.tiling.max_pairs"] = 8 * max(8192, round(est / 2 / 8192) * 8192)
+    del init, train_views
+    torch.cuda.empty_cache()
+    argv = ["-c", str(config), "--device", "cuda"]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+
+    def one_process(name, views, *extra):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = train_cli.main(argv + ["--out-dir", str(work / name), "--set",
+                                             f"train.batch_views={views}", *extra])
+        hist = [{k: r[k] for k in ("step", "loss", "n_gaussians", "num_dropped_pairs")}
+                for r in trainer.history]
+        del trainer
+        torch.cuda.empty_cache()
+        return hist, time.perf_counter() - t0
+
+    summary, runs = {"start_max_pairs": sets["train.tiling.max_pairs"]}, {}
+    for v, t in MESH4_CLI_SHAPES:
+        shape = f"{v}x{t}"
+        ranks = mesh4_cli(argv, work / f"cli4_{shape}", (v, t), shape)
+        one, one_s = one_process(f"cli1_{shape}", v)
+        mesh_h = ranks[0]["history"]
+        diff = loss_diff(mesh_h, one)
+        by_step = [abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(mesh_h, one)]
+        alive = [[a["n_gaussians"], b["n_gaussians"]] for a, b in zip(mesh_h, one)]
+        ms = [(b["elapsed_s"] - a["elapsed_s"]) * 1e3 / (b["step"] - a["step"])
+              for a, b in zip(mesh_h[1:], mesh_h[2:])]
+        row = {"steps": [r["step"] for r in mesh_h], "loss_max_rel_diff": diff,
+               "loss_rel_diff_by_step": by_step,
+               "alive_mesh_vs_one": alive, "max_pairs": ranks[0]["max_pairs"],
+               "dropped": [r["num_dropped_pairs"] for r in mesh_h + one],
+               "band_scaled_num_pairs": [r["num_pairs"] for r in mesh_h],
+               "digests": [[d["step"], d["what"]] for d in ranks[0]["digests"]],
+               "captures_s_by_step": ranks[0]["captures_s_by_step"],
+               "mesh_ms_per_step_logged": ms, "mesh_job_s": ranks[0]["job_s"],
+               "one_run_s": one_s}
+        print(f"mesh4_cli_row {shape}: " + json.dumps(row), flush=True)
+        if [r["step"] for r in mesh_h] != [r["step"] for r in one] or len(mesh_h) != 8:
+            fail(f"phase 11 (b) {shape}: logged steps {row['steps']} and "
+                 f"{[r['step'] for r in one]}")
+        if not diff <= MESH_CLI_TOL or any(a != b for a, b in alive) or any(row["dropped"]):
+            fail(f"phase 11 (b) {shape}: losses differ by {diff}, alive {alive}, dropped "
+                 f"{row['dropped']}")
+        events = [s for s, what in row["digests"] if what == "event"]
+        n = {r["step"]: r["n_gaussians"] for r in mesh_h}
+        if not (n[20] > n[10] and n[40] > n[30]) or events != [20, 25, 40, 50, 75]:
+            fail(f"phase 11 (b) {shape}: events at {events}, alive {alive}")
+        runs[shape] = (ranks, one)
+        summary[shape] = {k: row[k] for k in ("loss_max_rel_diff", "mesh_job_s", "one_run_s")}
+        summary[shape]["mesh_ms_per_step_logged"] = ms
+    # the (2, 2) run's checkpoint, resumed on four ranks and in one process
+    (mesh_run,) = (work / "cli4_2x2" / "gs_tpu").iterdir()
+    resume = ["--resume", str(mesh_run / f"ckpt-{MESH4_RESUME:08d}"), "--iters",
+              str(MESH4_CLI_SETS["train.num_iters"] - MESH4_RESUME)]
+    ranks = mesh4_cli(argv, work / "cli4_resume", (2, 2), "resume", resume=resume)
+    uninterrupted = runs["2x2"][0][0]["history"]
+    resumed = ranks[0]["history"]
+    one, _ = one_process("cli1_resume", 2, *resume)
+    want_steps = [r["step"] for r in uninterrupted if r["step"] >= MESH4_RESUME]
+    row = {"checkpoint": Path(resume[1]).name, "steps": [r["step"] for r in resumed],
+           "four_ranks_loss_max_rel_diff": loss_diff(resumed, uninterrupted),
+           "one_process_loss_max_rel_diff": loss_diff(one, uninterrupted),
+           "digests": [[d["step"], d["what"]] for d in ranks[0]["digests"]]}
+    print("mesh4_cli_resume: " + json.dumps(row), flush=True)
+    if row["steps"] != want_steps or [r["step"] for r in one] != want_steps:
+        fail(f"phase 11 (b) resume: steps {row['steps']}, one process "
+             f"{[r['step'] for r in one]}, want {want_steps}")
+    if not (row["four_ranks_loss_max_rel_diff"] <= LOOP_LOSS_TOL
+            and row["one_process_loss_max_rel_diff"] <= MESH_CLI_TOL):
+        fail(f"phase 11 (b) resume: {row}")
+    summary["resume"] = {k: row[k] for k in ("four_ranks_loss_max_rel_diff",
+                                             "one_process_loss_max_rel_diff")}
+    print("mesh4_cli: " + json.dumps(summary), flush=True)
+    return {shape: ranks[0]["launches"] for shape, (ranks, _) in runs.items()}
+
+
+def phase11_scaling(work: Path) -> dict:
+    """(c) The scaling harness over the four cards (its own operating point,
+    route ``xla``) and ``dryrun_multichip.py`` on four NCCL ranks."""
+    lines, _, scaling_s = run_cli("benchmark_scaling", "--meshes", MESH4_SCALING,
+                                  timeout=MESH4_JOB_S, phase="phase 11 (c)")
+    scaling = last_json(lines, "benchmark_scaling")
+    rows = scaling["rows"]
+    bad = [r for r in rows if r["backend"] != "nccl" or r["shared_card"] or not (
+        math.isfinite(r["step_ms"]) and math.isfinite(r["loss"])) or any(
+        (r[k] is not None) != (rows[0]["dropped"] + rows[0]["tile_overflow"]
+                               + r["dropped"] + r["tile_overflow"] == 0)
+        for k in ("wall_eff", "flops_eff", "bytes_eff"))]
+    if [r["mesh"] for r in rows] != MESH4_SCALING.split(",") or scaling["skipped"] or bad:
+        fail(f"phase 11 (c): benchmark_scaling rows {rows}, skipped {scaling['skipped']}")
+    out = work / "dryrun.json"
+    t0 = time.perf_counter()
+    rc, text, _ = run_group(TORCHRUN + ["--nproc-per-node", str(MESH4_CARDS), "-m",
+                                        f"{PKG}.scripts.dryrun_multichip", "--out", str(out)],
+                            MESH4_JOB_S, "phase 11 (c) dryrun_multichip")
+    dry_s = time.perf_counter() - t0
+    lines = [x for x in text.splitlines() if x.startswith("dryrun_multichip")]
+    for x in lines:
+        print(x, flush=True)
+    rec = json.loads(out.read_text()) if rc == 0 and out.exists() else {}
+    if sum(x.startswith("dryrun_multichip OK") for x in lines) != 3 or (
+            rec.get("backend"), rec.get("routes")) != ("nccl", ["cuda", "cuda"]):
+        fail(f"phase 11 (c): dryrun_multichip exited {rc}:\n{text[-12000:]}")
+    summary = {"scaling_s": scaling_s, "scaling": rows, "dryrun_s": dry_s, "dryrun": rec}
+    print("mesh4_scaling: " + json.dumps(summary), flush=True)
+    return summary
+
+
+def phase11(work: Path):
+    """The mesh on four cards: (a) the sharded step, (b) the train CLI, (c)
+    the scaling harness and the dry run. Returns each (a) mesh's launches
+    per replay on every rank, and each part's seconds."""
+    t0 = time.perf_counter()
+    launches = phase11_steps(work)
+    t1 = time.perf_counter()
+    phase11_cli(work)
+    t2 = time.perf_counter()
+    phase11_scaling(work)
+    return launches, {"11a": t1 - t0, "11b": t2 - t1, "11c": time.perf_counter() - t2}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-ranks"]:  # one rank of phase 9 (b), under torchrun
         return mesh_ranks(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--mesh-cli"]:  # the rank of phase 9 (d), under torchrun
         return mesh_cli_rank(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--mesh4-steps"]:  # one rank of phase 11 (a), under torchrun
+        return mesh4_steps_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh4-cli"]:  # one rank of phase 11 (b), under torchrun
+        return mesh4_cli_rank(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:] not in ([], ["--cards", "1"], ["--cards", str(MESH4_CARDS)]):
+        print(f"usage: python3 chip_smoke.py [--cards 1|{MESH4_CARDS}]", file=sys.stderr)
+        return 2
+    cards = int(sys.argv[2]) if sys.argv[1:] else 1
     try:
         import torch
     except ImportError:
@@ -3034,6 +3677,10 @@ def main() -> int:
         print(f"chip_smoke: {PKG}/ not found beside this script: run it from a "
               "checkout of the repository", file=sys.stderr)
         return 2
+    if torch.cuda.device_count() < cards:
+        print(f"chip_smoke: --cards {cards} needs {cards} cards, this machine has "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -3046,6 +3693,8 @@ def main() -> int:
         return out
 
     timed("1 probe", probe)
+    if cards == MESH4_CARDS:
+        return four_cards(timed, seconds, t0)
     timed("2", phase2)
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
@@ -3066,6 +3715,9 @@ def main() -> int:
         print(f"phase9: {sum(v for k, v in seconds.items() if k[0] == '9'):.1f} s", flush=True)
     bench_launches, bench_errs = timed("10", phase10)
     print("phases_s: " + json.dumps(seconds), flush=True)
+    print(f"phase11: not run: the mesh on {MESH4_CARDS} cards, one rank per card, needs "
+          f"python3 chip_smoke.py --cards {MESH4_CARDS} on a {MESH4_CARDS}-card machine",
+          flush=True)
     for row in kernels:
         row["loop_launches"] = loop_launches[row["name"]]
         row["serve_launches"] = {cli: n[row["name"]] for cli, n in serve_launches.items()}
@@ -3079,6 +3731,25 @@ def main() -> int:
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def four_cards(timed, seconds, t0) -> int:
+    """``--cards 4``: the probe (done) and phase 11 alone, then the cards'
+    names and power limits and the contract's last line."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, parts = timed("11", phase11, Path(tmp))
+    seconds.update(parts)
+    print("phases_s: " + json.dumps(seconds), flush=True)
+    print("mesh4_launches: " + json.dumps(launches), flush=True)
+    print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
+    for i, line in enumerate(gpu_lines()):
+        print(f"gpu {i}: {line}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

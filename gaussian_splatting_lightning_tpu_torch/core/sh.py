@@ -92,6 +92,14 @@ def _band_basis(dirs: torch.Tensor, band: int) -> torch.Tensor:
     return torch.stack(terms, dim=-1)
 
 
+def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """Evaluate SH colors at the static ``degree``. sh (..., K, 3), dirs
+    (..., 3) unit -> (..., 3)."""
+    if not 0 <= degree <= 4:
+        raise ValueError(f"degree must be in [0, 4], got {degree}")
+    return eval_sh_banded(sh, dirs, degree, degree)
+
+
 def eval_sh_banded(
     sh: torch.Tensor, dirs: torch.Tensor, degree: int, max_degree: int
 ) -> torch.Tensor:

@@ -65,6 +65,12 @@ def build_cov3d(
     return torch.stack([c_xx, c_xy, c_xz, c_yy, c_yz, c_zz], dim=-1)
 
 
+def cov3d_to_matrix(cov6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) upper triangle -> (..., 3, 3) symmetric."""
+    idx = torch.tensor([0, 1, 2, 1, 3, 4, 2, 4, 5], device=cov6.device)
+    return cov6.index_select(-1, idx).reshape(cov6.shape[:-1] + (3, 3))
+
+
 def apply_extrinsic(points: torch.Tensor, viewmatrix: torch.Tensor) -> torch.Tensor:
     """[p, 1] @ view -> (..., 4). Spec: camera_tools.py:21-27."""
     ones = torch.ones(points.shape[:-1] + (1,), dtype=points.dtype, device=points.device)

@@ -161,3 +161,34 @@ def test_eval_sh_banded_match(degree):
     np.testing.assert_array_equal(np.asarray(jsh.rgb_to_sh0(rgb)), tsh.rgb_to_sh0(rgb))
     sh0 = torch.from_numpy(sh[:, 0])
     close(jsh.sh0_to_rgb(jnp.asarray(sh[:, 0])), tsh.sh0_to_rgb(sh0))
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+def test_eval_sh_match(degree):
+    """``eval_sh`` at its static degree against the JAX function (its einsum
+    sums each band in another order: the core tolerance, f32), and the
+    degree's range refused as JAX refuses it."""
+    rng = np.random.default_rng(10 + degree)
+    sh = rng.normal(size=(2, 150, (degree + 1) ** 2, 3)).astype(np.float32)
+    dirs = rng.normal(size=(2, 150, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    close(jsh.eval_sh(jnp.asarray(sh), jnp.asarray(dirs), degree),
+          tsh.eval_sh(torch.from_numpy(sh), torch.from_numpy(dirs), degree))
+    for bad in (-1, 5):
+        with pytest.raises(ValueError, match="degree must be in"):
+            tsh.eval_sh(torch.from_numpy(sh), torch.from_numpy(dirs), bad)
+        with pytest.raises(ValueError, match="degree must be in"):
+            jsh.eval_sh(jnp.asarray(sh), jnp.asarray(dirs), bad)
+
+
+def test_cov3d_to_matrix_match():
+    """The symmetric matrix of a covariance's upper triangle: the JAX
+    function's bits, for a stack and for one covariance."""
+    _, scales, quats, _ = _splats()
+    cov = jtf.build_cov3d(jnp.asarray(scales), jnp.asarray(quats))
+    for c in (np.array(cov).reshape(4, 100, 6), np.array(cov)[0]):
+        want = np.asarray(jtf.cov3d_to_matrix(jnp.asarray(c)))
+        got = ttf.cov3d_to_matrix(torch.from_numpy(c))
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), np.swapaxes(got.numpy(), -1, -2))

@@ -22,9 +22,11 @@
   and K5 twice a replay, every loss, parameter and moment the same bits.
 - With four cards: the sharded step on four NCCL ranks (one per card,
   ``tests/torch_nccl_worker.py`` under torchrun), meshes (1, 4) and (2, 2),
-  captured against eager for 5 steps: one capture a mesh, every rank's
-  losses, exposure gradients, parameters, Adam rows and statistics the same
-  bits, and the replicated parameters the same on every rank.
+  and (4, 1) on its own, captured against eager for 5 steps: one capture a
+  mesh, every rank's losses, exposure gradients, parameters, Adam rows and
+  statistics the same bits, and the replicated parameters the same on every
+  rank; and ``scripts/dryrun_multichip.py`` on four NCCL ranks (its three
+  passes and their asserts).
 - The exposure graph (``make_exposure_update``) against the eager
   ``exposure_update``, bit for bit, for one view, three views and three
   with one repeated.
@@ -38,6 +40,7 @@ This file imports no JAX: the machine with the card has none.
 """
 
 import dataclasses
+import json
 import math
 import subprocess
 import sys
@@ -61,6 +64,7 @@ from gaussian_splatting_lightning_tpu_torch.utils import graph
 
 pytestmark = pytest.mark.cuda
 
+PKG = "gaussian_splatting_lightning_tpu_torch"
 W, H = 128, 96
 TILING = TilingConfig(max_pairs=1 << 16, block=32)
 STEP_KERNELS = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
@@ -330,20 +334,34 @@ def test_captured_mesh_step_equals_eager_on_nccl(scene):
         shutdown(mesh)  # the step's graph goes before the communicators it uses
 
 
-def test_captured_mesh_step_equals_eager_on_four_nccl_ranks(scene, tmp_path):
+@pytest.fixture
+def four_cards(scene):
+    """Skips unless this machine has four cards (one NCCL rank each);
+    builds the kernels once, before the ranks load them."""
     del scene  # the fixture only skips without a card
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four cards: one NCCL rank each")
-    _build.build()  # once, before the ranks load the kernels
-    root = Path(__file__).resolve().parents[1]
+    _build.build()
+    return Path(__file__).resolve().parents[1]
+
+
+def torchrun(root, *args, timeout=600):
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-         "4", str(root / "tests" / "torch_nccl_worker.py"), str(tmp_path)],
-        cwd=root, capture_output=True, text=True, timeout=600)
+         "4", *map(str, args)], cwd=root, capture_output=True, text=True, timeout=timeout)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return proc.stdout
+
+
+def four_rank_mismatches(root, tmp_path, shapes):
+    """``tests/torch_nccl_worker.py`` on four NCCL ranks for ``shapes``; every
+    difference of a rank's captured side from its eager side, a drop, a
+    parameter that differs from rank 0's, another capture count than one or
+    another set of kernels than the step's."""
+    torchrun(root, root / "tests" / "torch_nccl_worker.py", tmp_path, *shapes)
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
     bad = []
-    for mesh in ("1x4", "2x2"):
+    for mesh in shapes:
         for r, got in enumerate(ranks):
             if int(got[f"{mesh}/captures"]) != 1:
                 bad.append((mesh, r, "captures", int(got[f"{mesh}/captures"])))
@@ -362,7 +380,31 @@ def test_captured_mesh_step_equals_eager_on_four_nccl_ranks(scene, tmp_path):
             names = set(got[f"{mesh}/launch_names"].tolist())
             if names != set(STEP_KERNELS):
                 bad.append((mesh, r, "launches", sorted(names)))
+    return bad
+
+
+def test_captured_mesh_step_equals_eager_on_four_nccl_ranks(four_cards, tmp_path):
+    bad = four_rank_mismatches(four_cards, tmp_path, ["1x4", "2x2"])
     assert not bad, bad[:20]
+
+
+def test_captured_mesh_step_equals_eager_on_four_nccl_view_ranks(four_cards, tmp_path):
+    """The (4, 1) mesh: four view groups of one rank each, a view per rank,
+    only the gradient sums and the statistics crossing the ranks."""
+    bad = four_rank_mismatches(four_cards, tmp_path, ["4x1"])
+    assert not bad, bad[:20]
+
+
+def test_dryrun_multichip_on_four_nccl_ranks(four_cards, tmp_path):
+    """``scripts/dryrun_multichip.py`` on four cards: its three passes on
+    NCCL, one rank per card, the steps captured; rank 0 prints the JAX
+    function's three OK lines."""
+    out = torchrun(four_cards, "-m", f"{PKG}.scripts.dryrun_multichip", "--out",
+                   tmp_path / "dry.json")
+    assert sum(x.startswith("dryrun_multichip OK") for x in out.splitlines()) == 3, out
+    rec = json.loads((tmp_path / "dry.json").read_text())
+    assert (rec["backend"], rec["ranks"], rec["routes"]) == ("nccl", 4, ["cuda", "cuda"])
+    assert rec["pass1"]["n_alive"] > 48 and rec["pass3"]["cross_psnr_db"] > 45.0
 
 
 def test_exposure_graph_equals_eager(scene):

@@ -20,7 +20,8 @@ FORBIDDEN = {"jax", "jaxlib", "gaussian_splatting_lightning_tpu", "__graft_entry
 FILES = sorted((ROOT / PORT).rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda_kernels.py",
     ROOT / "tests" / "test_torch_graph_cuda.py",
-    ROOT / "tests" / "torch_expand_layouts.py", ROOT / "tests" / "torch_mesh_worker.py"]
+    ROOT / "tests" / "torch_expand_layouts.py", ROOT / "tests" / "torch_mesh_worker.py",
+    ROOT / "tests" / "torch_nccl_worker.py", ROOT / "tests" / "torch_dryrun_worker.py"]
 
 
 def imported_modules(path: Path):
@@ -45,7 +46,8 @@ def test_scan_covers_the_port():
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/shard.py",
                    "scripts/bench.py", "scripts/bench_batched.py",
                    "scripts/benchmark_scaling.py", "scripts/scaling_worker.py",
-                   "scripts/banded_check.py", "utils/graph.py"):
+                   "scripts/banded_check.py", "utils/graph.py",
+                   "scripts/dryrun_multichip.py"):
         assert f"{PORT}/{module}" in names, module
     assert len(names) >= 30
     # the viewer page is the port's own file, not a path into the JAX package

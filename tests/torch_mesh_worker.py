@@ -58,13 +58,14 @@ TRAINER_STEPS = 5
 FOCAL = 50.0
 
 
-def targets(seed=0):
+def targets(seed=0, batch=BATCH):
     """(images (B, 3, H, W), depth targets (B, H, W), exposure (B, 3, 4))."""
     rng = np.random.default_rng(seed)
-    images = rng.uniform(size=(BATCH, 3, H, W)).astype(np.float32)
-    depth = rng.uniform(0.1, 0.5, size=(BATCH, H, W)).astype(np.float32)
-    exp = np.tile(np.concatenate([np.eye(3), np.full((3, 1), 0.05)], 1), (BATCH, 1, 1))
-    exp = (exp * np.asarray([0.9, 1.1])[:, None, None]).astype(np.float32)
+    images = rng.uniform(size=(batch, 3, H, W)).astype(np.float32)
+    depth = rng.uniform(0.1, 0.5, size=(batch, H, W)).astype(np.float32)
+    exp = np.tile(np.concatenate([np.eye(3), np.full((3, 1), 0.05)], 1), (batch, 1, 1))
+    gains = np.resize(np.asarray([0.9, 1.1]), batch)  # alternating, as at BATCH
+    exp = (exp * gains[:, None, None]).astype(np.float32)
     return images, depth, exp
 
 

@@ -2,13 +2,15 @@
 (``tests/test_torch_graph_cuda.py``), one rank per card:
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
-        tests/torch_nccl_worker.py <out dir>
+        tests/torch_nccl_worker.py <out dir> [VxT ...]
 
-For each mesh of ``MESHES`` the sharded step runs captured (what
+For each mesh (default ``MESHES``) the sharded step runs captured (what
 ``Trainer(mesh=…)`` replays on NCCL: real collectives across the ranks, on
 the "tile", "view" and "world" groups) and eagerly (``capture=False``),
 ``STEPS`` steps each from the same start, on ``tests/torch_mesh_worker.py``'s
-problem on route "cuda" with ZeRO-1 Adam, exposure and a depth target. Each
+problem on route "cuda" with ZeRO-1 Adam, exposure and a depth target, on a
+global batch of ``torch_mesh_worker.BATCH`` views (one per view group when
+the view axis is longer). Each
 rank writes ``<out dir>/rank<r>.npz``: per mesh and side the losses, the
 exposure gradients, the parameters, this rank's Adam rows and the
 densification statistics, and for the captured side its captures and
@@ -46,11 +48,12 @@ def run_mesh(mesh, out):
     cfg = mw.step_config("cuda", CAPACITY, True, True)
     steps = {"captured": make_sharded_train_step(cfg, 4.0, mw.W, mw.H, mesh),
              "eager": make_sharded_train_step(cfg, 4.0, mw.W, mw.H, mesh, capture=False)}
-    images, depth_t, exp = mw.targets()
-    b = mw.BATCH // mesh.shape["view"]
+    batch = max(mw.BATCH, mesh.shape["view"])
+    images, depth_t, exp = mw.targets(batch=batch)
+    b = batch // mesh.shape["view"]
     rows = slice(mesh.axis_index("view") * b, (mesh.axis_index("view") + 1) * b)
     cams = [make_camera(ring_pose(i, 5), mw.FOCAL, mw.FOCAL, mw.W, mw.H, device=dev)
-            for i in range(mw.BATCH)][rows]
+            for i in range(batch)][rows]
     args = (stack_cameras(cams), torch.from_numpy(images[rows]).to(dev),
             torch.zeros(b, 3, device=dev))
     kw = dict(exp_mat=torch.from_numpy(exp[rows]).to(dev),
@@ -81,7 +84,7 @@ def run_mesh(mesh, out):
     out[f"{key}/launch_names"] = np.array(sorted(captured.launches))
 
 
-def main(out_dir):
+def main(out_dir, shapes=()):
     from gaussian_splatting_lightning_tpu_torch.parallel import (
         init_distributed,
         make_mesh,
@@ -92,7 +95,7 @@ def main(out_dir):
     out: dict = {}
     meshes = []
     try:
-        for view, tile in MESHES:
+        for view, tile in [tuple(map(int, s.split("x"))) for s in shapes] or MESHES:
             meshes.append(make_mesh(view, tile, info=info))
             run_mesh(meshes[-1], out)
     finally:
@@ -101,4 +104,4 @@ def main(out_dir):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2:])

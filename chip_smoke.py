@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100, and of its mesh
 on four.
 
-Run from the repository root with no arguments (one card: phases 1-10):
+Run from the repository root with no arguments (one card: phases 1-10
+and 12):
 
     python3 chip_smoke.py
 
@@ -187,6 +188,24 @@ Phases (any failure exits non-zero):
      and ``scripts/dryrun_multichip.py`` on four NCCL ranks (its three OK
      lines; ``mesh4_scaling:``). Then each card's name and power limit.
      Without ``--cards 4`` one line says that phase 11 was not run.
+  12. (after phase 5, on its scene, camera, budget and seeded target at
+     1920x1080 with 32 px tiles) the rasterizer's precomputed inputs and
+     scale modifier, and K5 at every window. (a) The derived render against
+     the render given ``colors_precomp`` and ``cov3d_precomp`` derived from
+     the same leaves (``sh_to_rgb``, ``build_cov3d``) beside junk SH (x 100
+     + 3) and scales (x 7): image, depth, radii and stats identical, the L1
+     gradient on the means and opacities within PRECOMP_TOL of the derived
+     one's largest |value| (their bits printed), K1-K4 launched once each.
+     (b) ``scale_modifier=0.5`` against scales x 0.5: identical renders. (c)
+     Route "cuda" against "plain" with the tables as leaves: the image within
+     K2_TOL, the gradients of <cotangent, render> (a seeded cotangent on
+     image and depth) on both tables within K3_TOL of each column's largest
+     |plain|. (d) K5 at each window of ``ssim.KERNEL_WINDOWS`` (sigma 1.5)
+     and at window 7 with sigma 2.5 on the SSIM stack of (a)'s render
+     (15, 1080 + w - 1, 1920 + w - 1): forward and VJP (on the unpadded
+     cotangent) bit-identical to the plain version, each timed by CUDA
+     events beside its byte bound; ``ssim`` at window 7 on the card equal to
+     the plain version. A ``phase12:`` line holds the numbers.
 
 Phases 3, 5, 8 and 10 print a ``graph:`` line: the capture's seconds, and
 for the captured and the eager path each the host wall and CUDA-event ms a
@@ -210,7 +229,8 @@ each phase-7 CLI's launches, ``batched_launches`` phase 8's per B,
 ``mesh_launches`` phase 9's over the 1x1 mesh's TRAIN_STEPS timed replays
 and on each rank's first step of the (1, 4) and (2, 2) meshes,
 ``bench_launches`` phase 10's bench headline's per step,
-``bench_err`` each phase-10 entry path's errors)
+``bench_err`` each phase-10 entry path's errors, and the ``blur`` row's
+``windows`` phase 12's K5 rows per window)
 on the line before the last, and
 ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
 """
@@ -1072,7 +1092,8 @@ def phase5(scene, budget):
     # the VJP as the autograd function runs it: one launch on the unpadded
     # cotangent; beside it, what the kernel's zero margin saves: F.pad, then
     # a launch on the padded cotangent, and the pad alone
-    vjp_ctx = types.SimpleNamespace(plain=False)
+    vjp_ctx = types.SimpleNamespace(plain=False, taps=ssim.TAPS,
+                                    needs_input_grad=(True, False, False))
     k5_vjp_ms = cuda_time_ms(lambda: ssim.BlurValid.backward(vjp_ctx, ct_blur), 20)
     ct_pad = F.pad(ct_blur, (ssim.HALO,) * 4).contiguous()
     k5_pad_route_ms = cuda_time_ms(
@@ -1161,6 +1182,165 @@ def phase5(scene, budget):
          "vjp_bound_ms": k5_vjp_bytes / HBM_BYTES_PER_S * 1e3,
          "vjp_library_ms": k5_vjp_lib_ms},
     ]
+
+
+# phase 12: the rasterizer's precomputed inputs and scale modifier, and K5
+# at every window it has an instance for, on phase 5's problem (the bench
+# scene and camera at 1080p, its budget and seeded target, 32 px tiles)
+PRECOMP_TOL = 1e-6  # derived against precomputed gradients, where the bits differ
+JUNK_SH = (100.0, 3.0)  # sh * 100 + 3, and scales * 7: inputs a precomputed one replaces
+JUNK_SCALE = 7.0
+
+
+def phase12(scene, budget):
+    """(a) the derived render against the one given the RGB and covariance
+    it derives, beside junk SH and scales; (b) ``scale_modifier`` against
+    scaled scales; (c) route "cuda" against "plain" with the precomputed
+    inputs; (d) K5 at each window against its plain version, timed. Returns
+    K5's rows per window for the ``kernels`` line."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch import interop
+    from gaussian_splatting_lightning_tpu_torch.core import sh as sh_lib
+    from gaussian_splatting_lightning_tpu_torch.core import transforms as tf
+    from gaussian_splatting_lightning_tpu_torch.ops import _build, ssim
+    from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize
+
+    w, h, blk = 1920, 1080, 32
+    cam = interop.camera(w, h)
+    target = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(3, h, w)).astype(np.float32)).cuda()
+    bg = torch.zeros(3, device="cuda")
+    tiling = TilingConfig(max_pairs=budget, block=blk)
+    deg, max_deg = scene.active_sh_degree, scene.max_sh_degree
+    means, opac = scene.params.xyz.detach(), scene.get_opacity().detach()
+    scales, quats = scene.get_scales().detach(), scene.get_rotation().detach()
+    sh = scene.get_features().detach()
+    junk_sh, junk_scales = sh * JUNK_SH[0] + JUNK_SH[1], scales * JUNK_SCALE
+
+    def render(m, o, s, shs, plain=False, **kw):
+        return rasterize(m, o, s, quats, shs, cam, w, h, bg, deg, config=tiling,
+                         max_sh_degree=max_deg, alive=scene.alive, plain=plain, **kw)
+
+    def l1(out):
+        return (out.image - target).abs().mean()
+
+    # (a) the same leaves twice: derived, and through the tables derived
+    # from them (so the gradient on the means also flows through the colour)
+    summary, counted, grads = {}, {}, {}
+    for name in ("derived", "precomp"):
+        m, o = means.clone().requires_grad_(), opac.clone().requires_grad_()
+        _build.reset_launch_counts()
+        if name == "derived":
+            out, stats = render(m, o, scales, sh)
+        else:
+            rgb = sh_lib.sh_to_rgb(sh, m, cam.campos, deg, max_deg)
+            cov6 = tf.build_cov3d(scales, quats)
+            out, stats = render(m, o, junk_scales, junk_sh, colors_precomp=rgb,
+                                cov3d_precomp=cov6)
+        gm, go = torch.autograd.grad(l1(out), (m, o))
+        torch.cuda.synchronize()
+        counted[name] = dict(_build.launches)
+        grads[name] = (out, {k: int(v) for k, v in stats.items()}, gm, go)
+    (d_out, d_stats, d_gm, d_go), (p_out, p_stats, p_gm, p_go) = grads.values()
+    same = {f: torch.equal(getattr(d_out, f), getattr(p_out, f))
+            for f in ("image", "depth", "radii")}
+    same["stats"] = d_stats == p_stats
+    grad_err = {k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for k, a, b in (("xyz", p_gm, d_gm), ("opacity", p_go, d_go))}
+    want = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1, "segment_sum": 1,
+            "blur": 0}
+    summary["a"] = {"bits_equal": same, "grad_bits_equal": {
+        "xyz": torch.equal(p_gm, d_gm), "opacity": torch.equal(p_go, d_go)},
+        "grad_rel_err": grad_err, "tolerance": PRECOMP_TOL, "launches": counted["precomp"],
+        "num_pairs": p_stats["num_pairs"], "dropped": p_stats["num_dropped_pairs"]}
+    if not all(same.values()):
+        fail(f"phase 12 (a): the precomputed inputs change the render: {same}")
+    if not max(grad_err.values()) <= PRECOMP_TOL:
+        fail(f"phase 12 (a): gradients differ from the derived render's: {grad_err}")
+    if any(counted[k] != want for k in counted):
+        fail(f"phase 12 (a): launches {counted}, expected {want} a render")
+    if p_stats["num_dropped_pairs"] != 0:
+        fail(f"phase 12 (a): {p_stats['num_dropped_pairs']} pairs dropped")
+    image = d_out.image.detach()
+    del grads, d_out, p_out, d_gm, d_go, p_gm, p_go
+
+    # (b) the modifier against the scales it scales
+    with torch.no_grad():
+        mod, _ = render(means, opac, scales, sh, scale_modifier=0.5)
+        half, _ = render(means, opac, scales * 0.5, sh)
+    summary["b"] = {f: torch.equal(getattr(mod, f), getattr(half, f))
+                    for f in ("image", "depth", "radii")}
+    if not all(summary["b"].values()):
+        fail(f"phase 12 (b): scale_modifier 0.5 differs from scales x 0.5: {summary['b']}")
+    del mod, half
+
+    # (c) route "cuda" against "plain" with the precomputed tables as leaves,
+    # the gradients of <cotangent, render> for a seeded cotangent on image and
+    # depth: the L1 loss's sign flips where the two routes' images straddle
+    # the target, which moves whole pixels' terms, not rounding
+    rgb0 = sh_lib.sh_to_rgb(sh, means, cam.campos, deg, max_deg)
+    cov0 = tf.build_cov3d(scales, quats)
+    ct = torch.from_numpy(np.random.default_rng(2).normal(size=(4, h, w)).astype(
+        np.float32)).cuda()
+    routes = {}
+    for plain in (False, True):
+        cp, cv = rgb0.clone().requires_grad_(), cov0.clone().requires_grad_()
+        out, _ = render(means, opac, junk_scales, junk_sh, plain=plain, colors_precomp=cp,
+                        cov3d_precomp=cv)
+        dot = (out.image * ct[:3]).sum() + (out.depth * ct[3:]).sum()
+        routes[plain] = (out.image.detach(),) + torch.autograd.grad(dot, (cp, cv))
+    (ki, kc, kv), (pi, pc, pv) = routes[False], routes[True]
+    summary["c"] = {"image_max_abs_err": float((ki - pi).abs().max()), "image_tol": K2_TOL,
+                    "colors_precomp_col_err": col_err(kc, pc),
+                    "cov3d_precomp_col_err": col_err(kv, pv), "grad_tol": K3_TOL}
+    if not (summary["c"]["image_max_abs_err"] <= K2_TOL
+            and summary["c"]["colors_precomp_col_err"] <= K3_TOL
+            and summary["c"]["cov3d_precomp_col_err"] <= K3_TOL):
+        fail(f"phase 12 (c): route cuda differs from plain: {summary['c']}")
+    del routes, ki, kc, kv, pi, pc, pv
+
+    # (d) K5 at every window on the SSIM stack of (a)'s render, both ways
+    rows = {}
+    for win, sigma in [(v, ssim.SIGMA) for v in ssim.KERNEL_WINDOWS] + [(7, 2.5)]:
+        taps = ssim.window_taps(win, sigma)
+        stack, c1, c2 = ssim.ssim_stack(image[None], target[None], win)
+        blurred = ssim.blur_valid(stack, 0, taps).requires_grad_()
+        (ct,) = torch.autograd.grad(ssim.ssim_from_blurred(blurred, c1, c2, 1).mean(), blurred)
+        ct = ct.contiguous()
+        err = 0.0
+        for x, margin in ((stack, 0), (ct, win - 1)):
+            yk = ssim.blur_valid(x, margin, taps)
+            yp = ssim.blur_valid_plain(x, margin, taps)
+            torch.cuda.synchronize()
+            err = max(err, float((yk - yp).abs().max()))
+            if not torch.equal(yk, yp):
+                fail(f"phase 12 (d): K5 at window {win}, sigma {sigma}, margin {margin}: "
+                     f"not bit-identical to the plain version ({err})")
+        ctx = types.SimpleNamespace(plain=False, taps=taps, needs_input_grad=(True, False, False))
+        c = stack.shape[0]
+        out_px = c * (stack.shape[1] - win + 1) * (stack.shape[2] - win + 1)
+        rows[f"{win}/{sigma}"] = {
+            "window": win, "sigma": sigma, "stack": list(stack.shape), "max_abs_err": err,
+            "ms": cuda_time_ms(lambda: ssim.blur_valid(stack, 0, taps), 20),
+            "vjp_ms": cuda_time_ms(lambda: ssim.BlurValid.backward(ctx, ct), 20),
+            "plain_ms": cuda_time_ms(lambda: ssim.blur_valid_plain(stack, 0, taps), 3),
+            "bound_ms": (stack.numel() + out_px) * 4 / HBM_BYTES_PER_S * 1e3,
+            "vjp_bound_ms": (ct.numel() + stack.numel()) * 4 / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        del stack, blurred, ct, yk, yp
+    got = ssim.ssim(image, target, window_size=7)
+    want7 = ssim.ssim(image, target, True, window_size=7)
+    summary["d"] = {"windows": rows, "ssim_w7": float(got), "ssim_w7_plain": float(want7)}
+    if not torch.equal(got, want7):
+        fail(f"phase 12 (d): ssim at window 7 on cuda {float(got)} against plain "
+             f"{float(want7)}")
+    print("phase12: " + json.dumps(summary), flush=True)
+    return rows
 
 
 # phase 6: configs/rehearsal_synthetic.yaml's operating point, depth cut
@@ -3702,6 +3882,7 @@ def main() -> int:
         timed("4", phase4)
         bare_step_syncs, step_kernels = timed("5", phase5, scene, budget)
         kernels += step_kernels
+        blur_windows = timed("12", phase12, scene, budget)
         batched_launches = timed("8", phase8, scene, budget)
         mesh_launches = {"1x1": timed("9a", phase9_nccl, scene, budget)}
         del scene
@@ -3728,6 +3909,8 @@ def main() -> int:
         row["mesh_band_err"] = band_errs[row["name"]]
         row["bench_launches"] = bench_launches[row["name"]]
         row["bench_err"] = bench_errs[row["name"]]
+        if row["name"] == "blur":
+            row["windows"] = blur_windows
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

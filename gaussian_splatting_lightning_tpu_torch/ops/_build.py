@@ -56,7 +56,7 @@ ENTRIES = {
     "composite_fwd": ("gs_composite_fwd", [_VP] * 6 + [_I] * 9 + [_VP]),
     "composite_bwd": ("gs_composite_bwd", [_VP] * 8 + [_I] * 10 + [_VP]),
     "segment_sum": ("gs_segment_sum", [_VP] * 5 + [_I] * 3 + [_VP]),
-    "blur": ("gs_blur_valid", [_VP] * 2 + [_I] * 4 + [_VP]),
+    "blur": ("gs_blur_valid", [_VP] * 2 + [_I] * 5 + [_VP] * 2),
 }
 
 launches = {name: 0 for name in SOURCES}

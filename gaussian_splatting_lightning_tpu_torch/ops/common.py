@@ -77,10 +77,19 @@ def preprocess(
     alive: Optional[torch.Tensor] = None,  # (N,) bool padded-capacity mask
     means2d_ndc_offset: Optional[torch.Tensor] = None,  # (N, 2) zeros whose
     # gradient is the densification screen-space signal (NDC units)
+    scale_modifier: float = 1.0,  # scales the splats' extent (not with cov3d_precomp)
+    colors_precomp: Optional[torch.Tensor] = None,  # (N, 3) RGB replacing the SH
+    cov3d_precomp: Optional[torch.Tensor] = None,  # (N, 6) upper-triangle 3D
+    # covariance, in build_cov3d's order, replacing scales and quats
 ) -> Preprocessed:
     """One pass of broadcast ops. A stacked ``camera`` (B views,
     ``stack_cameras``) with a (B, N, 2) offset gives every field a leading B:
-    the splats are shared, the view-dependent quantities are per view."""
+    the splats are shared, the view-dependent quantities are per view.
+
+    ``colors_precomp``, ``cov3d_precomp`` and ``scale_modifier`` are the N1
+    rasterizer's inputs of those names (JAX ``ops/common.py``): a precomputed
+    input replaces what would be derived from the SH or from scales and
+    quats, which then get no gradient."""
     opacities = opacities.reshape(-1)
     tanx, tany = camera.tanfovx, camera.tanfovy
     if camera.views is not None:  # (B, ...) views broadcast over (N, ...) splats
@@ -95,7 +104,10 @@ def preprocess(
 
     focal_x = (width * 0.5) / tanx
     focal_y = (height * 0.5) / tany
-    cov6 = tf.build_cov3d(scales, quats)
+    if cov3d_precomp is not None:
+        cov6 = cov3d_precomp
+    else:
+        cov6 = tf.build_cov3d(scales, quats, scale_modifier)
     cov2d = tf.project_cov3d_ewa(
         means3d, cov6, camera.viewmatrix, focal_x, focal_y, tanx, tany,
     )
@@ -115,9 +127,12 @@ def preprocess(
     log_ratio = torch.log(torch.clamp_min(opacity / ALPHA_THRESHOLD, 1.0))
     cull_r2 = 2.0 * log_ratio * torch.clamp_max(lam_max, 1e12) * 1.001 + 0.25
 
-    rgb = sh_lib.sh_to_rgb(sh, means3d, camera.campos, sh_degree, max_sh_degree)
+    if colors_precomp is not None:
+        rgb = colors_precomp
+    else:
+        rgb = sh_lib.sh_to_rgb(sh, means3d, camera.campos, sh_degree, max_sh_degree)
     p_pix = tf.ndc_to_pix(p_ndc, width, height)
-    if camera.views is not None:  # SH degree 0 has no view direction
+    if camera.views is not None:  # SH degree 0 and colors_precomp have no view axis
         rgb = rgb.expand(p_pix.shape[:-1] + (3,))
     return Preprocessed(
         p_pix=p_pix,

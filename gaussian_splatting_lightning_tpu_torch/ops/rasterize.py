@@ -488,13 +488,15 @@ def rasterize(
     background, sh_degree, config=None, max_sh_degree=None,
     antialias: bool = False, alive=None, means2d_ndc_offset=None,
     tile_y_offset: int = 0, grid_y_local=None, early_stop: bool = True,
-    prep=None, plain: bool = False,
+    prep=None, plain: bool = False, scale_modifier: float = 1.0,
+    colors_precomp=None, cov3d_precomp=None,
 ):
     """Render one view: (RenderOutput, stats), the ``rasterize_pallas``
     contract, differentiable in every float input. ``plain`` runs the
     kernels' plain versions on any device; otherwise CUDA tensors go through
     the kernels and CPU tensors through the plain versions. ``prep`` accepts
-    an externally computed ``Preprocessed``.
+    an externally computed ``Preprocessed``; ``scale_modifier``,
+    ``colors_precomp`` and ``cov3d_precomp`` go to ``preprocess``.
 
     A stacked ``camera`` (B views, ``core.camera.stack_cameras``) with a
     (3,) or (B, 3) ``background`` and a (B, N, 2) offset renders all B in
@@ -509,6 +511,8 @@ def rasterize(
         prep = preprocess(
             means3d, opacities, scales, quats, sh, camera, width, height,
             sh_degree, max_sh_degree, antialias, alive, means2d_ndc_offset,
+            scale_modifier=scale_modifier, colors_precomp=colors_precomp,
+            cov3d_precomp=cov3d_precomp,
         )
     views = prep.depth.shape[0] if prep.depth.dim() == 2 else None
     grid_x, grid_y = binning.grid_shape(width, height, blk, blk)

@@ -125,12 +125,18 @@ def rasterize_reference(
     alive: Optional[torch.Tensor] = None,
     means2d_ndc_offset: Optional[torch.Tensor] = None,
     reference_quirks: bool = False,
+    scale_modifier: float = 1.0,
+    colors_precomp: Optional[torch.Tensor] = None,
+    cov3d_precomp: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     """Full forward rasterization; the signature mirrors the reference's
-    ``rasterize_gaussian`` (rasterize.py:28-46)."""
+    ``rasterize_gaussian`` (rasterize.py:28-46), its ``scale_modifier``,
+    ``colors_precomp`` and ``cov3D_precomp`` included."""
     prep = preprocess(
         means3d, opacities, scales, quats, sh, camera, width, height,
         sh_degree, max_sh_degree, antialias, alive, means2d_ndc_offset,
+        scale_modifier=scale_modifier, colors_precomp=colors_precomp,
+        cov3d_precomp=cov3d_precomp,
     )
     grid_x = (width + BLOCK_X - 1) // BLOCK_X
     grid_y = (height + BLOCK_Y - 1) // BLOCK_Y

@@ -136,6 +136,9 @@ def rasterize_tiled(
     tile_y_offset: int = 0,
     grid_y_local: Optional[int] = None,
     prep: Optional[Preprocessed] = None,
+    scale_modifier: float = 1.0,
+    colors_precomp: Optional[torch.Tensor] = None,
+    cov3d_precomp: Optional[torch.Tensor] = None,
 ):
     """Render one view: (RenderOutput, stats), the semantics of
     ``rasterize_reference`` without ``reference_quirks`` (the CUDA
@@ -144,13 +147,16 @@ def rasterize_tiled(
 
     ``tile_y_offset`` + ``grid_y_local`` render only a band of tile rows; the
     image then has height ``grid_y_local * 16``. ``prep`` accepts an
-    externally computed ``Preprocessed``.
+    externally computed ``Preprocessed``; ``scale_modifier``,
+    ``colors_precomp`` and ``cov3d_precomp`` go to ``preprocess``.
     """
     config = config or TilingConfig()
     if prep is None:
         prep = preprocess(
             means3d, opacities, scales, quats, sh, camera, width, height,
             sh_degree, max_sh_degree, antialias, alive, means2d_ndc_offset,
+            scale_modifier=scale_modifier, colors_precomp=colors_precomp,
+            cov3d_precomp=cov3d_precomp,
         )
     grid_x, grid_y = binning.grid_shape(width, height)
     banded = grid_y_local is not None

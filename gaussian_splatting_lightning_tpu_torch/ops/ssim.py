@@ -1,15 +1,26 @@
 """Differentiable SSIM and PSNR, with the separable blur as kernel K5.
 
-Counterpart of ``gaussian_splatting_lightning_tpu/ops/ssim.py``: an 11x11
-Gaussian window (sigma 1.5), C1 = 0.01^2, C2 = 0.03^2, zero padding, mean
-over pixels and channels. The five blurred quantities (x, y, x^2, y^2, xy of
-the centered images) are one 5C-channel VALID blur, K5
-(``csrc/blur.cu``); ``BlurValid`` is its autograd function, whose backward
-is the same blur of the cotangent read with a zero margin of 10 (the window
-is symmetric), launched on the unpadded cotangent.
+Counterpart of ``gaussian_splatting_lightning_tpu/ops/ssim.py``: a Gaussian
+window (11 taps, sigma 1.5 unless asked otherwise), C1 = 0.01^2,
+C2 = 0.03^2, zero padding, mean over pixels and channels. The five blurred
+quantities (x, y, x^2, y^2, xy of the centered images) are one 5C-channel
+VALID blur, K5 (``csrc/blur.cu``, one instance per odd window in
+``KERNEL_WINDOWS``; the taps are a launch argument); ``BlurValid`` is its
+autograd function, whose backward is the same blur of the cotangent read
+with a zero margin of window - 1 (the window is symmetric), launched on the
+unpadded cotangent.
+
+Windows must be odd. An even window is not symmetric about its centre, so
+the same blur of the cotangent is not the blur's adjoint, and the padded map
+would be one pixel larger than the image; the JAX package accepts even
+windows and returns exactly those wrong gradients and shapes, the port
+refuses them.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -19,9 +30,10 @@ from gaussian_splatting_lightning_tpu_torch.ops import _build
 
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
-WINDOW = 11  # K5's window is compiled in
+WINDOW = 11  # the default window and sigma (the JAX package's)
 SIGMA = 1.5
 HALO = WINDOW - 1
+KERNEL_WINDOWS = tuple(range(3, 16, 2))  # the windows K5 has an instance for
 
 
 def gaussian_window(size: int = WINDOW, sigma: float = SIGMA) -> np.ndarray:
@@ -32,43 +44,65 @@ def gaussian_window(size: int = WINDOW, sigma: float = SIGMA) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
-TAPS = tuple(float(t) for t in gaussian_window())  # K5 holds them as literals
+@functools.lru_cache(maxsize=16)
+def window_taps(window_size: int = WINDOW, sigma: float = SIGMA) -> tuple:
+    """The blur's taps for an odd ``window_size``, as Python floats (each an
+    f32 value); raises ``ValueError`` for an even or non-positive window."""
+    if window_size < 1 or window_size % 2 == 0:
+        raise ValueError(
+            f"SSIM window_size must be odd and positive, got {window_size}: an even "
+            "window is not symmetric about its centre, so the blur's VJP (the same "
+            "blur of the cotangent) would not be its adjoint")
+    return tuple(float(t) for t in gaussian_window(window_size, sigma))
 
 
-def blur_valid_plain(x: torch.Tensor, margin: int = 0) -> torch.Tensor:
+TAPS = window_taps()
+
+
+@functools.lru_cache(maxsize=16)
+def kernel_taps(taps: tuple) -> ctypes.Array:
+    """The f32 array K5's entry copies into its launch argument."""
+    return (ctypes.c_float * len(taps))(*taps)
+
+
+def blur_valid_plain(x: torch.Tensor, margin: int = 0, taps: tuple = TAPS) -> torch.Tensor:
     """Plain PyTorch version of K5: (C, Hp, Wp) embedded in ``margin`` zeros
-    on every side, then blurred VALID -> (C, Hp + 2 margin - 10,
-    Wp + 2 margin - 10); vertical taps then horizontal, summed in tap order
-    (K5's order)."""
+    on every side, then blurred VALID by the w = len(taps) window ->
+    (C, Hp + 2 margin - w + 1, Wp + 2 margin - w + 1); vertical taps then
+    horizontal, summed in tap order (K5's order)."""
     if margin:
         x = F.pad(x, (margin,) * 4)
-    h, w = x.shape[1] - HALO, x.shape[2] - HALO
-    mid = x[:, 0:h] * TAPS[0]
-    for k in range(1, WINDOW):
-        mid = mid + x[:, k:k + h] * TAPS[k]
-    out = mid[:, :, 0:w] * TAPS[0]
-    for k in range(1, WINDOW):
-        out = out + mid[:, :, k:k + w] * TAPS[k]
+    win = len(taps)
+    h, w = x.shape[1] - win + 1, x.shape[2] - win + 1
+    mid = x[:, 0:h] * taps[0]
+    for k in range(1, win):
+        mid = mid + x[:, k:k + h] * taps[k]
+    out = mid[:, :, 0:w] * taps[0]
+    for k in range(1, win):
+        out = out + mid[:, :, k:k + w] * taps[k]
     return out
 
 
-def blur_valid(x: torch.Tensor, margin: int = 0) -> torch.Tensor:
+def blur_valid(x: torch.Tensor, margin: int = 0, taps: tuple = TAPS) -> torch.Tensor:
     """K5 wrapper: launches ``csrc/blur.cu`` on CUDA tensors, runs the plain
     version on CPU tensors. (C, Hp, Wp) f32 read with a zero margin of
-    ``margin`` -> (C, Hp + 2 margin - 10, Wp + 2 margin - 10); the margin is
-    never materialised on the card."""
+    ``margin`` and blurred by the w = len(taps) window -> (C, Hp + 2 margin
+    - w + 1, Wp + 2 margin - w + 1); the margin is never materialised on the
+    card. A window without a kernel instance raises."""
     if x.device.type == "cpu":
-        return blur_valid_plain(x, margin)
+        return blur_valid_plain(x, margin, taps)
     _build.check_tensor(x, "x", torch.float32, x.device)
-    if x.dim() != 3 or margin < 0 or min(x.shape[1:]) + 2 * margin <= HALO:
-        raise ValueError(f"x must be (C, Hp, Wp) with Hp, Wp + 2 margin > {HALO}, "
+    halo = len(taps) - 1
+    if x.dim() != 3 or margin < 0 or min(x.shape[1:]) + 2 * margin <= halo:
+        raise ValueError(f"x must be (C, Hp, Wp) with Hp, Wp + 2 margin > {halo}, "
                          f"got {tuple(x.shape)} and margin {margin}")
     c, hp, wp = x.shape
-    out = torch.empty(c, hp + 2 * margin - HALO, wp + 2 * margin - HALO,
+    out = torch.empty(c, hp + 2 * margin - halo, wp + 2 * margin - halo,
                       dtype=torch.float32, device=x.device)
     lib = _build.load("blur")
     p = _build.ptr
-    rc = lib.gs_blur_valid(p(x), p(out), c, hp, wp, margin, _build.stream_of(out))
+    rc = lib.gs_blur_valid(p(x), p(out), c, hp, wp, margin, len(taps), kernel_taps(taps),
+                           _build.stream_of(out))
     _build.check(lib, "blur", rc)
     return out
 
@@ -77,22 +111,27 @@ class BlurValid(torch.autograd.Function):
     """VALID blur with K5 in both directions: the adjoint of a VALID
     correlation with a symmetric window is the same correlation of the
     cotangent read with a zero margin of the halo. ``plain`` runs the plain
-    version on any device."""
+    version on any device; ``taps`` (an odd count; default the 11-tap
+    window) may be left out."""
 
     @staticmethod
-    def forward(ctx, x, plain):
-        ctx.plain = plain
-        return (blur_valid_plain if plain else blur_valid)(x)
+    def forward(ctx, x, plain, taps=TAPS):
+        if len(taps) % 2 == 0:
+            raise ValueError(f"BlurValid needs an odd, symmetric window, got {len(taps)} taps")
+        ctx.plain, ctx.taps = plain, taps
+        return (blur_valid_plain if plain else blur_valid)(x, 0, taps)
 
     @staticmethod
     def backward(ctx, ct):
         blur = blur_valid_plain if ctx.plain else blur_valid
-        return blur(ct.contiguous(), HALO), None
+        dx = blur(ct.contiguous(), len(ctx.taps) - 1, ctx.taps)
+        return (dx,) + (None,) * (len(ctx.needs_input_grad) - 1)
 
 
-def ssim_stack(img1: torch.Tensor, img2: torch.Tensor):
-    """The blur's input: (B * 5C, H + 10, W + 10) stack of the zero-padded,
-    centred x, y, x^2, y^2 and xy, and the two centres.
+def ssim_stack(img1: torch.Tensor, img2: torch.Tensor, window_size: int = WINDOW):
+    """The blur's input: (B * 5C, H + w - 1, W + w - 1) stack of the
+    zero-padded, centred x, y, x^2, y^2 and xy (w = ``window_size``), and
+    the two centres.
 
     Variances are taken on globally centred inputs (centred on each image's
     detached mean): exact for any constant shift, and in f32 the uncentred
@@ -107,7 +146,7 @@ def ssim_stack(img1: torch.Tensor, img2: torch.Tensor):
     else:
         c1 = img1.mean(dim=(1, 2, 3), keepdim=True).detach()
         c2 = img2.mean(dim=(1, 2, 3), keepdim=True).detach()
-    r = WINDOW // 2
+    r = window_size // 2
     y1 = F.pad(img1, (r, r, r, r)) - c1
     y2 = F.pad(img2, (r, r, r, r)) - c2
     stacked = torch.cat([y1, y2, y1 * y1, y2 * y2, y1 * y2], dim=1)
@@ -129,18 +168,22 @@ def ssim_from_blurred(blurred: torch.Tensor, c1, c2, batch: int) -> torch.Tensor
     )
 
 
-def ssim_map(img1: torch.Tensor, img2: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def ssim_map(img1: torch.Tensor, img2: torch.Tensor, plain: bool = False, *,
+             window_size: int = WINDOW, sigma: float = SIGMA) -> torch.Tensor:
     """Per-pixel SSIM map, (B, C, H, W) -> (B, C, H, W), zero padding; one
-    5C-channel blur (``ssim_stack``) between the two halves."""
-    stacked, c1, c2 = ssim_stack(img1, img2)
-    return ssim_from_blurred(BlurValid.apply(stacked, plain), c1, c2, img1.shape[0])
+    5C-channel blur (``ssim_stack``) between the two halves. An even
+    ``window_size`` raises ``ValueError``."""
+    taps = window_taps(window_size, sigma)
+    stacked, c1, c2 = ssim_stack(img1, img2, window_size)
+    return ssim_from_blurred(BlurValid.apply(stacked, plain, taps), c1, c2, img1.shape[0])
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def ssim(img1: torch.Tensor, img2: torch.Tensor, plain: bool = False, *,
+         window_size: int = WINDOW, sigma: float = SIGMA) -> torch.Tensor:
     """Mean SSIM between two (B, C, H, W) or (C, H, W) images in [0, 1]."""
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
-    return ssim_map(img1, img2, plain).mean()
+    return ssim_map(img1, img2, plain, window_size=window_size, sigma=sigma).mean()
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,

@@ -266,48 +266,71 @@ def test_segment_sum_kernel_on_a_synthetic_layout():
     assert torch.equal(sk, again)
 
 
-# (C, Hp, Wp): output widths 1, 2 and 3 mod 4, several 500-column strips,
-# one output row (Hp = 11), a ragged last strip of rows
-BLUR_SHAPES = [(15, 40, 57), (3, 11, 532), (2, 136, 1035), (1, 300, 1118), (4, 11, 11)]
+# (C, H, W) outputs: widths 1, 2 and 3 mod 4, several strips, one output
+# row, a ragged last strip of rows; the input adds the window's halo
+BLUR_OUTS = [(15, 30, 47), (3, 1, 522), (2, 126, 1025), (1, 290, 1108), (4, 1, 1)]
+# every window K5 has an instance for, and sigma 2.5 at window 7
+BLUR_WINDOWS = [(w, 1.5) for w in ssim.KERNEL_WINDOWS] + [(7, 2.5)]
 
 
-@pytest.mark.parametrize("shape", BLUR_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_blur_kernel_is_bit_identical_to_plain(shape):
+@pytest.mark.parametrize("window,sigma", BLUR_WINDOWS, ids=lambda v: str(v))
+@pytest.mark.parametrize("out", BLUR_OUTS, ids=lambda s: "x".join(map(str, s)))
+def test_blur_kernel_is_bit_identical_to_plain(out, window, sigma):
     """Forward on x and the VJP's launch on the unpadded cotangent (a zero
-    margin of 10) against the plain version, to the bit."""
+    margin of window - 1) against the plain version, to the bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    taps, halo = ssim.window_taps(window, sigma), window - 1
     gen = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.rand(shape, device="cuda", generator=gen) * 2 - 1
-    c, hp, wp = shape
-    ct = torch.randn(c, hp - ssim.HALO, wp - ssim.HALO, device="cuda", generator=gen)
-    for inp, margin in ((x, 0), (ct, ssim.HALO)):
+    c, h, w = out
+    x = torch.rand(c, h + halo, w + halo, device="cuda", generator=gen) * 2 - 1
+    ct = torch.randn(c, h, w, device="cuda", generator=gen)
+    for inp, margin in ((x, 0), (ct, halo)):
         before = _build.launches["blur"]
-        yk = ssim.blur_valid(inp, margin)
+        yk = ssim.blur_valid(inp, margin, taps)
         assert _build.launches["blur"] == before + 1
-        yp = ssim.blur_valid_plain(inp, margin)
+        yp = ssim.blur_valid_plain(inp, margin, taps)
         torch.cuda.synchronize()
         assert yk.shape == yp.shape
         assert torch.equal(yk, yp), float((yk - yp).abs().max())
 
 
-def test_blur_kernel_matches_plain_forward_and_vjp():
+@pytest.mark.parametrize("window,sigma", BLUR_WINDOWS, ids=lambda v: str(v))
+def test_blur_kernel_matches_plain_forward_and_vjp(window, sigma):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    taps = ssim.window_taps(window, sigma)
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = (torch.rand(15, 107, 141, device="cuda", generator=gen) * 2 - 1).requires_grad_()
-    ct = torch.randn(15, 97, 131, device="cuda", generator=gen)
+    ct = torch.randn(15, 108 - window, 142 - window, device="cuda", generator=gen)
     before = _build.launches["blur"]
-    y = ssim.BlurValid.apply(x, False)
+    y = ssim.BlurValid.apply(x, False, taps)
     (dx,) = torch.autograd.grad(y, x, ct)
     assert _build.launches["blur"] == before + 2  # forward and VJP
     xp = x.detach().requires_grad_()
-    yp = ssim.BlurValid.apply(xp, True)
+    yp = ssim.BlurValid.apply(xp, True, taps)
     (dxp,) = torch.autograd.grad(yp, xp, ct)
     torch.cuda.synchronize()
-    assert y.shape == (15, 97, 131) and dx.shape == x.shape
+    assert y.shape == ct.shape and dx.shape == x.shape
     assert torch.equal(y.detach(), yp.detach())
     assert torch.equal(dx, dxp)
+
+
+def test_ssim_window_on_the_card_equals_plain():
+    """``ssim`` at window 7 through K5 against the plain version; a window
+    without a K5 instance raises rather than falling back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.rand(3, 70, 90, device="cuda", generator=gen)
+    b = torch.rand(3, 70, 90, device="cuda", generator=gen)
+    got = ssim.ssim(a, b, window_size=7)
+    want = ssim.ssim(a, b, True, window_size=7)
+    assert torch.equal(got, want)
+    with pytest.raises(RuntimeError, match="no K5 instance"):
+        ssim.ssim(a, b, window_size=17)
+    with pytest.raises(ValueError, match="odd"):
+        ssim.ssim(a, b, window_size=10)
 
 
 @pytest.mark.parametrize("block", [16, 32])

@@ -1,10 +1,11 @@
 """The port's SSIM (K5's plain version on the CPU) against the JAX package's
 ``ops/ssim.py``: the blur forward and VJP against ``_blur_valid`` (XLA conv
 at HIGHEST precision) and ``_blur_valid_pallas(interpret=True)``, ``ssim``'s
-value and gradient, the smooth high-resolution case where the uncentered
+value and gradient, each at windows 3, 7, 11 and 15; the taps K5 is given;
+even windows refused; the smooth high-resolution case where the uncentered
 form loses ~7 digits, and ``psnr``.
 
-Tolerances: the blur is 121 f32 products summed in another order than the
+Tolerances: the blur is w^2 f32 products summed in another order than the
 JAX conv (vertical then horizontal taps, serially), a few ulp of values
 <= 1: 2e-6 absolute. SSIM's value within 1e-6 and its gradient within 1e-4
 of the gradient's largest magnitude (the map divides by local variances as
@@ -12,8 +13,6 @@ small as C2 = 9e-4, which amplifies those ulps).
 """
 
 import importlib
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,26 +34,34 @@ def stack(c=15, hp=40, wp=57):
     return RNG.uniform(-1.0, 1.0, size=(c, hp, wp)).astype(np.float32)
 
 
+# (window, sigma): the default, both ends of K5's instances, a wide sigma
+WINDOWS = [(3, 0.8), (7, 1.5), (11, 1.5), (15, 2.5)]
+
+
+@pytest.mark.parametrize("window,sigma", WINDOWS, ids=lambda v: str(v))
 @pytest.mark.parametrize("jax_blur", ["xla", "pallas_interpret"])
-def test_blur_forward_and_vjp_match_jax(jax_blur):
+def test_blur_forward_and_vjp_match_jax(jax_blur, window, sigma):
     x = stack()
-    ct = RNG.normal(size=(15, 30, 47)).astype(np.float32)
+    out = (15, 41 - window, 58 - window)
+    ct = RNG.normal(size=out).astype(np.float32)
     if jax_blur == "xla":
         def fn(v):
-            return jssim._blur_valid(v, 11, 1.5)
+            return jssim._blur_valid(v, window, sigma)
     else:
         def fn(v):
-            return jssim._blur_valid_pallas(v, 11, 1.5, interpret=True)
+            return jssim._blur_valid_pallas(v, window, sigma, interpret=True)
     jy, vjp = jax.vjp(fn, jnp.asarray(x)[None])
     (jdx,) = vjp(jnp.asarray(ct)[None])
 
+    taps = tssim.window_taps(window, sigma)
     tx = torch.from_numpy(x).requires_grad_()
-    ty = tssim.BlurValid.apply(tx, False)
+    ty = tssim.BlurValid.apply(tx, False, taps)
     ty.backward(torch.from_numpy(ct))
-    assert ty.shape == (15, 30, 47)
+    assert ty.shape == out
     np.testing.assert_allclose(np.asarray(jy)[0], ty.detach().numpy(), atol=2e-6, rtol=0)
     np.testing.assert_allclose(np.asarray(jdx)[0], tx.grad.numpy(), atol=2e-6, rtol=0)
-    assert torch.equal(ty, tssim.blur_valid(tx))  # CPU tensors take the plain version
+    # CPU tensors take the plain version
+    assert torch.equal(ty, tssim.blur_valid(tx, 0, taps))
 
 
 @pytest.mark.parametrize("shape", [(15, 11, 57), (3, 23, 18), (2, 37, 31), (1, 11, 11)],
@@ -81,24 +88,45 @@ def test_taps_are_the_jax_window():
                                   jssim._gaussian_window(11, 1.5))
 
 
-def test_kernel_taps_are_the_window():
-    """K5 holds the window as f32 hex literals in ``csrc/blur.cu``; they must
-    be the plain version's taps to the bit."""
-    src = (Path(tssim.__file__).parents[1] / "csrc" / "blur.cu").read_text()
-    body = re.search(r"kTaps\[kWin\]\s*=\s*\{([^}]*)\}", src).group(1)
-    lits = [float.fromhex(v.strip().rstrip("f")) for v in body.split(",")]
-    assert np.asarray(lits, np.float32).tolist() == list(tssim.TAPS)
-    assert np.array_equal(np.asarray(lits, np.float64), np.asarray(lits, np.float32))
+@pytest.mark.parametrize("window,sigma", WINDOWS + [(5, 1.0), (9, 1.5), (13, 2.0)],
+                         ids=lambda v: str(v))
+def test_kernel_taps_are_the_jax_window(window, sigma):
+    """The f32 taps K5's entry copies into its launch argument are JAX's
+    ``_gaussian_window(w, sigma)`` to the bit, and K5 has an instance for
+    every odd window from 3 to 15."""
+    arr = tssim.kernel_taps(tssim.window_taps(window, sigma))
+    got = np.frombuffer(arr, dtype=np.float32)
+    np.testing.assert_array_equal(got, jssim._gaussian_window(window, sigma))
+    assert window in tssim.KERNEL_WINDOWS
 
 
+@pytest.mark.parametrize("window", [4, 10, 0])
+def test_even_window_raises(window):
+    """An even window is not symmetric, so the blur's VJP would not be its
+    adjoint (JAX's Pallas VJP is off by 0.6 at window 4) and the map would
+    be a pixel too large: ``ssim``, ``ssim_map`` and ``BlurValid`` refuse it
+    on any device, before any blur."""
+    a = torch.from_numpy(RNG.uniform(size=(1, 3, 20, 24)).astype(np.float32))
+    with pytest.raises(ValueError, match="odd"):
+        tssim.ssim(a, a, window_size=window)
+    with pytest.raises(ValueError, match="odd"):
+        tssim.ssim_map(a, a, True, window_size=window)
+    if window:
+        taps = tuple(float(t) for t in jssim._gaussian_window(window, 1.5))
+        with pytest.raises(ValueError, match="odd"):
+            tssim.BlurValid.apply(torch.zeros(2, 30, 30), False, taps)
+
+
+@pytest.mark.parametrize("window,sigma", WINDOWS, ids=lambda v: str(v))
 @pytest.mark.parametrize("shape", [(3, 48, 64), (2, 3, 33, 21)])
-def test_ssim_value_and_gradient_match_jax(shape):
+def test_ssim_value_and_gradient_match_jax(shape, window, sigma):
     a = RNG.uniform(size=shape).astype(np.float32)
     b = np.clip(a + RNG.normal(scale=0.1, size=shape), 0, 1).astype(np.float32)
-    jv, (jga, jgb) = jax.value_and_grad(jssim.ssim, argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    jv, (jga, jgb) = jax.value_and_grad(jssim.ssim, argnums=(0, 1))(
+        jnp.asarray(a), jnp.asarray(b), window, sigma)
     ta = torch.from_numpy(a).requires_grad_()
     tb = torch.from_numpy(b).requires_grad_()
-    tv = tssim.ssim(ta, tb)
+    tv = tssim.ssim(ta, tb, window_size=window, sigma=sigma)
     tv.backward()
     assert abs(float(jv) - float(tv.detach())) <= 1e-6
     for jg, tg in ((jga, ta.grad), (jgb, tb.grad)):

@@ -8,7 +8,10 @@ hash of the source and the flags. A missing ``nvcc`` is an error: there is
 no fallback for a CUDA tensor.
 
 ``launches`` counts kernel launches by kernel name; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. The span marks
+(``csrc/span_mark.cu``, launched by ``utils/runtime.mark`` only while spans
+are on) are built and loaded here too, but are no kernel of the port's and
+are not counted.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ SOURCES = {
     "segment_sum": "segment_sum.cu",
     "blur": "blur.cu",
 }
+# libraries built and loaded like the kernels, but not counted in ``launches``
+LIBRARIES = dict(SOURCES, span_mark="span_mark.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,7 +47,7 @@ NVCC_FLAGS = (
 # PyTorch ops; K2, K3 and K5 round what must match explicitly (__fmul_rn &
 # co.) and let the rest contract to FMA; K4 only adds
 EXTRA_FLAGS = {"expand_pairs": ("--fmad=false",), "composite_fwd": (),
-               "composite_bwd": (), "segment_sum": (), "blur": ()}
+               "composite_bwd": (), "segment_sum": (), "blur": (), "span_mark": ()}
 
 
 def nvcc_flags(name: str) -> tuple:
@@ -57,6 +62,7 @@ ENTRIES = {
     "composite_bwd": ("gs_composite_bwd", [_VP] * 8 + [_I] * 10 + [_VP]),
     "segment_sum": ("gs_segment_sum", [_VP] * 5 + [_I] * 3 + [_VP]),
     "blur": ("gs_blur_valid", [_VP] * 2 + [_I] * 5 + [_VP] * 2),
+    "span_mark": ("gs_span_mark", [_I, _VP]),
 }
 
 launches = {name: 0 for name in SOURCES}
@@ -79,7 +85,7 @@ def nvcc_path() -> str:
 
 
 def _library(name: str) -> Path:
-    src = (SRC_DIR / SOURCES[name]).read_bytes()
+    src = (SRC_DIR / LIBRARIES[name]).read_bytes()
     digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -100,7 +106,7 @@ def build(names=None) -> dict:
     for name in todo:
         lib = _library(name)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp), str(SRC_DIR / SOURCES[name])]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp), str(SRC_DIR / LIBRARIES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib)
@@ -139,11 +145,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
-    """Raise if a C entry returned a CUDA error, else count the launch."""
+def raise_for(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise if a C entry returned a CUDA error."""
     if rc != 0:
         msg = lib.gs_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
+
+
+def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise if a C entry returned a CUDA error, else count the launch."""
+    raise_for(lib, name, rc)
     launches[name] += 1
 
 

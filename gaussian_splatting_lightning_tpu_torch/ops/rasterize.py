@@ -35,6 +35,8 @@ stack's, and their plain versions walk a stack one view at a time.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from gaussian_splatting_lightning_tpu_torch.core import transforms as tf
@@ -47,6 +49,7 @@ from gaussian_splatting_lightning_tpu_torch.ops.common import (
     TilingConfig,
     preprocess,
 )
+from gaussian_splatting_lightning_tpu_torch.utils import runtime
 
 NFEAT = 16  # px py ca cb cc op r g b invz x0 x1 y0 y1 (2 pad)
 NOUT = 4  # r g b invd, channel first per tile
@@ -520,11 +523,18 @@ def rasterize(
     gy = grid_y_local if banded else grid_y
 
     max_pairs = -(-config.max_pairs // binning.CHUNK) * binning.CHUNK
+    runtime.mark("binning", prep.depth)
     bins = binning.build_sorted_bins(
         prep, grid_x, grid_y, max_pairs, tile_y_offset, gy, block=blk,
         plain=plain,
     )
-    gfeat = feature_table(prep, width, height, blk)
+    runtime.mark("composite", prep.depth)
+    # with spans on, the backward marks "preprocess_bwd" once the table's
+    # gradient has reached every input of it: K3, K4 and their glue are done
+    fields = ("p_pix", "depth", "conic", "rgb", "opacity")
+    table_in = dataclasses.replace(prep, **dict(zip(fields, runtime.mark_backward(
+        "preprocess_bwd", *(getattr(prep, f) for f in fields)))))
+    gfeat = feature_table(table_in, width, height, blk)
     bg = torch.as_tensor(background, dtype=torch.float32).to(gfeat.device)
     if views is None:
         bg = bg.reshape(3)

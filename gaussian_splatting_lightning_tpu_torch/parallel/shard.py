@@ -63,7 +63,7 @@ from gaussian_splatting_lightning_tpu_torch.training.trainer import (
     step_args,
     step_tensors,
 )
-from gaussian_splatting_lightning_tpu_torch.utils import graph
+from gaussian_splatting_lightning_tpu_torch.utils import graph, runtime
 
 batch_cameras = stack_cameras  # the JAX name of the camera stack
 
@@ -297,10 +297,10 @@ class ShardedTrainStep:
     The mesh keeps a weak reference to the graph, so that ``shutdown(mesh)``
     releases it before the process group its collectives use.
     The key is the config, the image size, the mesh shape, the band geometry
-    (``gy_local``, ``band_tiling``), ``sharded_adam``, the active SH degree,
-    whether ``exp_mat`` and ``depth_target`` are given and the inputs'
-    shapes: the same on every rank, so every rank captures anew at the same
-    step. Captured, the scene and Adam are donated as in ``make_train_step``:
+    (``gy_local``, ``band_tiling``), ``sharded_adam``, whether spans are on
+    (``utils/runtime.spanning``), the active SH degree, whether ``exp_mat``
+    and ``depth_target`` are given and the inputs' shapes: the same on every
+    rank, so every rank captures anew at the same step. Captured, the scene and Adam are donated as in ``make_train_step``:
     the returned ones are the graph's own buffers, updated in place by every
     replay (another scene or Adam state is copied in), and the logs, the
     exposure gradient and ``band_stats`` hold until the next replay of any
@@ -377,8 +377,8 @@ class ShardedTrainStep:
 
     def _static(self, scene, exp_mat, depth_target) -> tuple:
         return (self.cfg, self.width, self.height, (self.n_view, self.n_tile), self.gy_local,
-                self.band_tiling, self.sharded_adam, scene.active_sh_degree,
-                exp_mat is not None, depth_target is not None)
+                self.band_tiling, self.sharded_adam, runtime.spans_on(),
+                scene.active_sh_degree, exp_mat is not None, depth_target is not None)
 
     def _check_capacity(self, scene):
         n_dev = self.mesh.size
@@ -406,6 +406,7 @@ class ShardedTrainStep:
         n_dev = mesh.size
         b_local = images.shape[0]
         use_depth = cfg.w_depth > 0.0 and depth_target is not None
+        runtime.mark("preprocess", scene.params.xyz)
         leaves = {k: getattr(scene.params, k).detach().requires_grad_() for k in PARAM_NAMES}
         offset = torch.zeros((b_local, scene.capacity, 2), dtype=scene.params.xyz.dtype,
                              device=scene.device, requires_grad=True)
@@ -427,6 +428,8 @@ class ShardedTrainStep:
                 # a per-pixel affine colour map: applied to the band rows it
                 # equals slicing the exposed full image
                 bands = apply_exposure(exp_mat, bands)
+            bands, = runtime.mark_backward("composite_bwd", bands)
+            runtime.mark("loss", bands)
             l1_p, ssim_p, mse_p = _band_loss_partials(bands, images, self.height, mesh,
                                                       self.route == "plain")
             # this rank's share of the full loss: the sum of the ranks'
@@ -441,7 +444,9 @@ class ShardedTrainStep:
                 parts.append(d_p)
             # the logs: the true full-image metrics, summed over the ring
             sums = mesh.all_reduce(torch.stack(parts).detach(), "tile")
+            runtime.mark("loss_bwd", loss_local)
             grads = torch.autograd.grad(loss_local, inputs, allow_unused=True)
+        runtime.mark("adam", loss_local)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
         l1_v, ssim_v, mse_v = sums[0], sums[1], sums[2]
         loss_v = (1.0 - cfg.w_ssim) * l1_v + cfg.w_ssim * (1.0 - ssim_v)
@@ -463,6 +468,7 @@ class ShardedTrainStep:
         # densification statistics, combined over the batch: every rank holds
         # the same scene afterwards
         radii = out.radii.detach()  # (B_local, C)
+        runtime.mark("stats", radii)
         seen = radii > 0
         norms = torch.linalg.vector_norm(screen[..., :2], dim=-1)
         acc = mesh.all_reduce(torch.stack([torch.where(seen, norms, 0.0).sum(dim=0),
@@ -490,6 +496,7 @@ class ShardedTrainStep:
                                            overflow.to(torch.int64)]), "world", op="max")
         logs["num_pairs"] = top[0] * self.n_tile
         logs["num_tile_overflow"] = top[1]
+        runtime.mark("end", radii)
         return scene, adam, logs, exp_grad, n_pairs, dropped
 
     def _update(self, scene, adam, grads, step, scalars):

@@ -8,12 +8,20 @@ parity with the reference's ``scripts/train.py``): a YAML or JSON config with
 Usage:
     python -m gaussian_splatting_lightning_tpu_torch.scripts.train \
         -c configs/train_gs.yaml [--seed 42] [--iters N] [--out-dir runs] \
-        [--resume CKPT_DIR|auto] [--set train.num_iters=100 ...] [--device cuda]
+        [--resume CKPT_DIR|auto] [--set train.num_iters=100 ...] [--device cuda] \
+        [--trace-dir DIR --trace-steps N]
 
 ``--device cpu`` runs every kernel's plain PyTorch version (slow; for tests).
 The run directory ``<out-dir>/<exp_name>/<run_name>-<time>/`` receives
 ``config.json``, ``train_log.jsonl``, ``valid_log.jsonl``, validation
 triptychs, PLYs and ``ckpt-XXXXXXXX/`` checkpoints.
+
+``--trace-dir DIR`` runs with the span marks on (``utils/runtime.spanning``;
+they run on the card only, at ~0.05% of a 1080p step), profiles the last
+``--trace-steps`` steps (default 20) with ``torch.profiler``, writes the
+Chrome trace into DIR and prints each segment of the step
+(``utils/runtime.SPANS``) in device ms a step, with the share of the card's
+busy time the segments cover.
 
 A mesh (``mesh_view``, ``mesh_tile``) runs one process per rank:
 
@@ -112,6 +120,10 @@ def main(argv=None):
     )
     parser.add_argument("--device", default="cuda",
                         help="cuda (the kernels) or cpu (their plain versions)")
+    parser.add_argument("--trace-dir", default=None,
+                        help="profile the last --trace-steps steps with the span marks on "
+                        "and write the Chrome trace here")
+    parser.add_argument("--trace-steps", type=int, default=20)
     args = parser.parse_args(argv)
 
     from gaussian_splatting_lightning_tpu_torch.parallel import shutdown
@@ -185,12 +197,39 @@ def run(args, cfg, mesh, device):
         if resume_path:
             trainer.restore_checkpoint(resume_path)
             say(f"resumed from {resume_path} at step {trainer.step}")
-    trainer.train()
+    traced = min(args.trace_steps, cfg.train.num_iters) if args.trace_dir else 0
+    if traced > 0:
+        from gaussian_splatting_lightning_tpu_torch.utils import runtime
+
+        # spans on from the start: the step captures with its marks before
+        # the traced steps, whose trace then holds replays only
+        with runtime.spanning():
+            if cfg.train.num_iters > traced:
+                trainer.train(cfg.train.num_iters - traced, final_checkpoint=False)
+            with runtime.trace(args.trace_dir) as prof:
+                trainer.train(traced)
+        report_segments(prof.profiler.kineto_results.events(), traced, say)
+    else:
+        trainer.train()
     trainer.validate()
     if rank0:
         save_ply(trainer.scene, out_dir / "point_cloud-final.ply")
     say(f"done; artifacts in {out_dir}")
     return trainer
+
+
+def report_segments(events, steps: int, say=print):
+    """Print each segment's device ms a step of the traced steps' events."""
+    from gaussian_splatting_lightning_tpu_torch.utils.runtime import span_segments
+
+    seg = span_segments(events)
+    if seg is None:
+        say(f"[trace] {steps} steps: no complete step of span marks (they run on the card)")
+        return
+    say(f"[trace] {seg['steps']} steps; the segments hold "
+        f"{100.0 * seg['covered']:.2f}% of the card's busy time")
+    for name, ms in seg["segment_ms"].items():
+        say(f"[trace] {name}: {ms:.4f} ms a step")
 
 
 def build_mesh(cfg, device):

@@ -86,7 +86,7 @@ from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
     make_lr_schedules,
     scalars_tensor,
 )
-from gaussian_splatting_lightning_tpu_torch.utils import graph
+from gaussian_splatting_lightning_tpu_torch.utils import graph, runtime
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,14 +257,17 @@ def make_render(width: int, height: int, tiling: TilingConfig = TilingConfig(),
     """The serving render, the counterpart of the JAX CLIs'
     ``jax.jit(render_scene)``: ``render(scene, camera, background)`` ->
     ``(RenderOutput, stats)`` without autograd. On CUDA it replays a
-    captured graph (``utils/graph.py``) per SH degree and shape, the camera's
-    tensors and the background its inputs; its outputs hold until the next
-    replay of any graph. ``capture=False``, or a CPU scene, renders
-    eagerly."""
+    captured graph (``utils/graph.py``) per SH degree, shape and span
+    setting (``render.key``), the camera's tensors and the background its
+    inputs; its outputs hold until the next replay of any graph.
+    ``capture=False``, or a CPU scene, renders eagerly."""
 
     @torch.no_grad()
     def render_eager(scene, camera, background):
-        return render_scene(scene, camera, width, height, background, tiling, antialias)
+        runtime.mark("preprocess", scene.params.xyz)
+        out = render_scene(scene, camera, width, height, background, tiling, antialias)
+        runtime.mark("end", out[0].image)
+        return out
 
     if not capture:
         return render_eager
@@ -275,14 +278,21 @@ def make_render(width: int, height: int, tiling: TilingConfig = TilingConfig(),
 
     graphed = graph.capture(body, name="render")
 
+    def static_of(scene):
+        return (width, height, tiling, antialias, runtime.spans_on(), scene.active_sh_degree)
+
     def render(scene, camera, background):
         if scene.device.type != "cuda":
             return render_eager(scene, camera, background)
-        out, stats = graphed((width, height, tiling, antialias, scene.active_sh_degree),
-                             *_scene_tensors(scene, stats=False), *_camera_tensors(camera),
-                             background)
+        out, stats = graphed(static_of(scene), *_scene_tensors(scene, stats=False),
+                             *_camera_tensors(camera), background)
         return out, dict(stats)
 
+    def key(scene, camera, background):
+        return graph.graph_key(static_of(scene), _scene_tensors(scene, stats=False)
+                               + _camera_tensors(camera) + [background])
+
+    render.key = key
     render.captured = graphed
     return render
 
@@ -306,6 +316,7 @@ def step_gradients(cfg: TrainConfig, scene: GaussianScene, camera: Camera,
     rasterize_fn = resolve_rasterizer(cfg.rasterizer)
     plain = cfg.rasterizer == "plain"
     views = cfg.batch_views if cfg.batch_views > 1 else None
+    runtime.mark("preprocess", scene.params.xyz)
     leaves = {k: getattr(scene.params, k).detach().requires_grad_() for k in PARAM_NAMES}
     offset = torch.zeros(((views,) if views else ()) + (scene.capacity, 2),
                          dtype=scene.params.xyz.dtype, device=scene.device,
@@ -326,6 +337,9 @@ def step_gradients(cfg: TrainConfig, scene: GaussianScene, camera: Camera,
         rendered = out.image
         if exp_mat is not None:
             rendered = apply_exposure(exp_mat, rendered)
+        # with spans on, "composite_bwd" marks the image's gradient complete
+        rendered, = runtime.mark_backward("composite_bwd", rendered)
+        runtime.mark("loss", rendered)
         losses = photometric_losses if views else photometric_loss
         loss, logs = losses(rendered, image, cfg.w_ssim, plain)
         if cfg.w_depth > 0.0 and depth_target is not None:
@@ -337,7 +351,9 @@ def step_gradients(cfg: TrainConfig, scene: GaussianScene, camera: Camera,
         if views:  # the batch mean, and the mean of each log over the views
             loss = torch.mean(loss)
             logs = {k: torch.mean(v) for k, v in logs.items()}
+        runtime.mark("loss_bwd", loss)
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    runtime.mark("adam", loss)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
     param_grads = GaussianParams(**dict(zip(PARAM_NAMES, grads)))
     screen_grads = grads[len(PARAM_NAMES)]
@@ -382,9 +398,11 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
     On CUDA the kernel route (``rasterizer: cuda``) replays a captured graph
     of the whole step (``utils/graph.py``), the counterpart of the JAX
     step's ``jax.jit(..., donate_argnums=(0, 1))``: the step's key is the
-    config, the image size, the active SH degree, whether ``exp_mat`` and
-    ``depth_target`` are given and the inputs' shapes, so a new budget or SH
-    degree captures anew. The scene and Adam are donated: the returned ones
+    config, the image size, whether spans are on (``utils/runtime.spanning``:
+    the marks of ``runtime.SPANS`` are then nodes of the graph), the active
+    SH degree, whether ``exp_mat`` and ``depth_target`` are given and the
+    inputs' shapes, so a new budget, SH degree or span setting captures
+    anew. The scene and Adam are donated: the returned ones
     are the graph's own buffers, updated in place by every replay (passing
     them back copies nothing; another scene is copied in), and the logs and
     ``exp_grad`` hold until the next replay of any graph. The learning
@@ -409,17 +427,19 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
         new_params, adam = adam_update(scene.params, param_grads, adam, schedules,
                                        cfg.optimizer, step, visible=_visible(cfg, radii))
         scene = dataclasses.replace(scene, params=new_params)
+        runtime.mark("stats", radii)
         # densification signal for the next batch start
         # (gs_lightning_module.py:175-178)
         scene = accumulate_stats(scene, radii, screen_grads)
         logs = _step_logs(logs, scene, stats)
+        runtime.mark("end", radii)
         if exp_mat is not None:
             return scene, adam, logs, exp_grad
         return scene, adam, logs
 
     def static_of(scene, exp_mat, depth_target):
-        return (cfg, width, height, scene.active_sh_degree, exp_mat is not None,
-                depth_target is not None)
+        return (cfg, width, height, runtime.spans_on(), scene.active_sh_degree,
+                exp_mat is not None, depth_target is not None)
 
     def body(static, *t):
         scene, adam, scalars, camera, image, background, exp_mat, depth_target = step_args(
@@ -429,8 +449,11 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
             depth_target)
         adam_update_(scene.params, param_grads, adam, scalars, cfg.optimizer,
                      visible=_visible(cfg, radii))
+        runtime.mark("stats", radii)
         accumulate_stats_(scene, radii, screen_grads)
-        return _step_logs(logs, scene, stats), exp_grad
+        logs = _step_logs(logs, scene, stats)
+        runtime.mark("end", radii)
+        return logs, exp_grad
 
     graphed = graph.capture(body, name="train_step") if capture else None
 
@@ -474,19 +497,22 @@ def make_eval_step(cfg: TrainConfig, width: int, height: int, capture: bool = Tr
     """``eval_step(scene, camera, image, background)`` ->
     ``(image, depth, logs)`` with the pair-drop counts in the logs. On CUDA
     the kernel route replays a captured graph (``make_render``'s inputs and
-    the target image); its outputs hold until the next replay of any graph.
-    ``capture=False``, a CPU scene, and the ``plain`` and ``xla`` routes run
-    eagerly."""
+    the target image; ``eval_step.key``, as ``make_render``'s); its outputs
+    hold until the next replay of any graph. ``capture=False``, a CPU scene,
+    and the ``plain`` and ``xla`` routes run eagerly."""
     rasterize_fn = resolve_rasterizer(cfg.rasterizer)
     plain = cfg.rasterizer == "plain"
 
     @torch.no_grad()
     def eager(scene, camera, image, background):
+        runtime.mark("preprocess", scene.params.xyz)
         out, stats = render_scene(scene, camera, width, height, background,
                                   cfg.tiling, cfg.antialias, rasterize_fn=rasterize_fn)
+        runtime.mark("loss", out.image)
         _, logs = photometric_loss(out.image, image, cfg.w_ssim, plain)
         logs["num_dropped_pairs"] = stats["num_dropped_pairs"]
         logs["num_tile_overflow"] = stats["num_tile_overflow"]
+        runtime.mark("end", out.image)
         return out.image, out.depth, logs
 
     if not capture or cfg.rasterizer != "cuda":
@@ -498,14 +524,21 @@ def make_eval_step(cfg: TrainConfig, width: int, height: int, capture: bool = Tr
 
     graphed = graph.capture(body, name="eval_step")
 
+    def static_of(scene):
+        return (cfg, width, height, runtime.spans_on(), scene.active_sh_degree)
+
     def eval_step(scene, camera, image, background):
         if scene.device.type != "cuda":
             return eager(scene, camera, image, background)
-        out, depth, logs = graphed((cfg, width, height, scene.active_sh_degree),
-                                   *_scene_tensors(scene, stats=False),
+        out, depth, logs = graphed(static_of(scene), *_scene_tensors(scene, stats=False),
                                    *_camera_tensors(camera), image, background)
         return out, depth, dict(logs)
 
+    def key(scene, camera, image, background):
+        return graph.graph_key(static_of(scene), _scene_tensors(scene, stats=False)
+                               + _camera_tensors(camera) + [image, background])
+
+    eval_step.key = key
     eval_step.captured = graphed
     return eval_step
 
@@ -570,6 +603,13 @@ class Trainer:
     the buffers (on a mesh gathering Adam with eager collectives between
     replays). A gloo mesh, the ``plain`` and ``xla`` routes and the CPU run
     eagerly.
+
+    With spans on (``utils/runtime.spanning``), under a profiler, the loop
+    marks its host work with spans (``utils/runtime.span``): ``trainer.step``
+    (a step's inputs up to the launch of its graph), ``trainer.log_read``
+    (the read of the logs every ``overflow_check_interval`` steps and the
+    checks on it), ``trainer.densify`` (a densify event), ``trainer.validate``
+    and ``trainer.checkpoint``.
     """
 
     def __init__(
@@ -803,12 +843,13 @@ class Trainer:
         if t < 1:
             return
         if t < d.densify_until and t > d.densify_since and t % d.densify_interval == 0:
-            self.scene, adam, stats = densify_step(
-                self.scene, self._whole_adam(), self.densify_noise(), d, self.spatial_scale,
-                t > d.opacity_reset_interval,
-            )
-            self.adam = self._local_adam(adam)
-            stats = {k: int(v) for k, v in _host_floats(stats).items()}
+            with runtime.span("trainer.densify"):
+                self.scene, adam, stats = densify_step(
+                    self.scene, self._whole_adam(), self.densify_noise(), d,
+                    self.spatial_scale, t > d.opacity_reset_interval,
+                )
+                self.adam = self._local_adam(adam)
+                stats = {k: int(v) for k, v in _host_floats(stats).items()}
             if stats["n_dropped_children"] > 0:
                 self.log_fn(
                     f"[densify] step {t}: capacity full, dropped "
@@ -826,7 +867,9 @@ class Trainer:
         if t % d.sh_degree_step_interval == 0:
             self.scene = sh_degree_step(self.scene)
 
-    def train(self, num_iters: Optional[int] = None):
+    def train(self, num_iters: Optional[int] = None, final_checkpoint: bool = True):
+        """Run ``num_iters`` steps (default ``cfg.num_iters``); with an
+        ``out_dir`` and ``final_checkpoint`` the last state is saved."""
         num_iters = num_iters or self.cfg.num_iters
         t_start = time.perf_counter()
         check_interval = max(1, min(self.cfg.overflow_check_interval, self.cfg.log_interval))
@@ -836,25 +879,27 @@ class Trainer:
                 # reset on the same step the PSNR reads low by construction
                 self.validate()
             self.maybe_densify()
-            view_idx, cam, img, bg, depth = self._step_inputs()
-            extra = {} if depth is None else {"depth_target": depth}
-            exp_grad = None
-            if self.exposure is not None:
-                self.scene, self.adam, logs, exp_grad = self._train_step(
-                    self.scene, self.adam, self.step, cam, img, bg,
-                    self.exposure.params[self._local(view_idx)], **extra)
-            else:
-                self.scene, self.adam, logs = self._train_step(
-                    self.scene, self.adam, self.step, cam, img, bg, **extra)
+            with runtime.span("trainer.step"):
+                view_idx, cam, img, bg, depth = self._step_inputs()
+                extra = {} if depth is None else {"depth_target": depth}
+                exp_grad = None
+                if self.exposure is not None:
+                    self.scene, self.adam, logs, exp_grad = self._train_step(
+                        self.scene, self.adam, self.step, cam, img, bg,
+                        self.exposure.params[self._local(view_idx)], **extra)
+                else:
+                    self.scene, self.adam, logs = self._train_step(
+                        self.scene, self.adam, self.step, cam, img, bg, **extra)
             # the host reads the logs before the exposure graph replays:
             # graphs that share the memory pool may overwrite each other's
             # outputs
             host = None
             if self.step % check_interval == 0:
-                host = _host_floats(logs)
-                if self._check_finite(host):
-                    continue  # rolled back; re-enter the loop from the ckpt
-                self._maybe_grow_budgets(host)
+                with runtime.span("trainer.log_read"):
+                    host = _host_floats(logs)
+                    if self._check_finite(host):
+                        continue  # rolled back; re-enter the loop from the ckpt
+                    self._maybe_grow_budgets(host)
             if self.step % self.cfg.log_interval == 0:
                 logs = dict(host or _host_floats(logs))
                 logs["step"] = self.step
@@ -876,7 +921,7 @@ class Trainer:
             # to run, so a restore replays the remaining trajectory exactly
             if self.out_dir and self.step % self.cfg.checkpoint_interval == 0:
                 self.save_checkpoint()
-        if self.out_dir and (
+        if self.out_dir and final_checkpoint and (
             self._last_ckpt is None or int(self._last_ckpt.name.split("-")[-1]) != self.step
         ):
             # the final state, so a completed run resumes from its end
@@ -925,6 +970,10 @@ class Trainer:
         return image, depth, logs
 
     def validate(self):
+        with runtime.span("trainer.validate"):
+            return self._validate()
+
+    def _validate(self):
         metrics = []
         for i, view in enumerate(self.valid_views):
             image, depth, logs = self._valid_render(view)
@@ -958,6 +1007,10 @@ class Trainer:
         ``trainer_state.json`` (view sampler, noise generator). On a mesh
         every rank calls it (a ZeRO-1 Adam is gathered whole) and rank 0
         writes."""
+        with runtime.span("trainer.checkpoint"):
+            self._save_checkpoint()
+
+    def _save_checkpoint(self):
         path = (self.out_dir / f"ckpt-{self.step:08d}").absolute()
         adam = self._whole_adam()
         self._last_ckpt = path

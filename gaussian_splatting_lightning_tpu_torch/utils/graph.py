@@ -24,6 +24,8 @@ every later call with that key:
   not advance the caller's state), builds and loads the kernels
   (``ops/_build.py``) and runs any one-time set-up, such as K5's
   ``cudaFuncSetAttribute``, outside the capture.
+- The warm-up and capture run inside the host span ``graph.capture``
+  (``utils/runtime.span``).
 - ``ops/_build.launches`` counts a launch where a wrapper makes it. A capture
   launches nothing, so the counts it records are taken back and added again
   on every replay: the counts stay the launches the card ran.
@@ -51,6 +53,7 @@ from typing import Callable, Hashable, NamedTuple, Sequence
 import torch
 
 from gaussian_splatting_lightning_tpu_torch.ops import _build
+from gaussian_splatting_lightning_tpu_torch.utils import runtime
 
 _pool = None
 _anchor = None
@@ -121,7 +124,8 @@ class Captured:
         entry = self._entry
         if entry is None or entry.key != key:
             self._entry = None  # release the old graph before the new capture
-            entry = self._entry = self._capture(key, static, tensors)
+            with runtime.span("graph.capture"):
+                entry = self._entry = self._capture(key, static, tensors)
         else:
             for buf, t in zip(entry.inputs, tensors):
                 if t.data_ptr() != buf.data_ptr() or t.stride() != buf.stride():

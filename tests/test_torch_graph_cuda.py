@@ -30,6 +30,11 @@
 - The exposure graph (``make_exposure_update``) against the eager
   ``exposure_update``, bit for bit, for one view, three views and three
   with one repeated.
+- Span marks (``utils/runtime.py``): the train step captured with spans on
+  gives the bits of the one captured with them off; five profiled replays
+  hold the ten marks of ``SPANS`` once a replay, in order, and the segments
+  between them hold at least 98% of the card's busy time; the render and
+  the eval step replay their own marks in order.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. On the
 card:
@@ -60,7 +65,7 @@ from gaussian_splatting_lightning_tpu_torch.training import exposure as texposur
 from gaussian_splatting_lightning_tpu_torch.training import trainer
 from gaussian_splatting_lightning_tpu_torch.training.densify import DensifyConfig
 from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
-from gaussian_splatting_lightning_tpu_torch.utils import graph
+from gaussian_splatting_lightning_tpu_torch.utils import graph, runtime
 
 pytestmark = pytest.mark.cuda
 
@@ -426,3 +431,80 @@ def test_exposure_graph_equals_eager(scene):
         assert captured.count == eager.count == len(idxs)
         for f in ("params", "mu", "nu"):
             assert torch.equal(getattr(captured, f), getattr(eager, f)), (idxs, f)
+
+
+def profiled_events(fn, n):
+    """``fn()`` ``n`` times under ``torch.profiler``: the raw events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return prof.profiler.kineto_results.events()
+
+
+def mark_names(events):
+    dev = sorted((e.start_ns(), e.name()) for e in events
+                 if str(e.device_type()).endswith("CUDA"))
+    return [m.group(1) for _, name in dev if (m := runtime.MARK_RE.search(name))]
+
+
+def test_span_marks_replay_in_order_and_keep_the_bits(scene):
+    """The step captured with spans on against the one captured with them
+    off, from the same start: the same bits; five profiled replays hold the
+    ten marks once a replay in ``SPANS`` order, and the segments hold at
+    least 98% of the card's busy time."""
+    cams = ring_cams(3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    imgs = torch.rand(3, 3, H, W, device="cuda", generator=gen)
+    bgs = torch.rand(3, 3, device="cuda", generator=gen)
+    cfg = trainer.TrainConfig(tiling=TILING)
+    runs = {}
+    for on in (False, True):
+        step = trainer.make_train_step(cfg, 1.0, W, H)
+        st = {"scene": clone_scene(scene), "adam": init_adam(scene.params), "t": 0,
+              "loss": []}
+
+        def one():
+            i = st["t"] % 3
+            st["scene"], st["adam"], logs = step(st["scene"], st["adam"], st["t"], cams[i],
+                                                 imgs[i], bgs[i])
+            st["loss"].append(float(logs["loss"]))
+            st["t"] += 1
+
+        with runtime.spanning(on):
+            one()  # warm-up, capture, replay
+            events = profiled_events(one, 5)
+        assert step.captured.captures == 1
+        runs[on] = (st, events)
+    (off, off_events), (on, on_events) = runs[False], runs[True]
+    assert on["loss"] == off["loss"]
+    for k in PARAM_NAMES:
+        for get in (lambda s: s["scene"].params, lambda s: s["adam"].mu,
+                    lambda s: s["adam"].nu):
+            assert torch.equal(getattr(get(on), k), getattr(get(off), k)), k
+    for k in ("max_radii2d", "grad_accum", "grad_count"):
+        assert torch.equal(getattr(on["scene"], k), getattr(off["scene"], k)), k
+    assert mark_names(off_events) == [] and runtime.span_segments(off_events) is None
+    assert mark_names(on_events) == list(runtime.SPANS) * 5
+    seg = runtime.span_segments(on_events)
+    assert seg["steps"] == 5 and seg["covered"] >= 0.98, seg
+    assert all(ms > 0 for ms in seg["segment_ms"].values()), seg
+
+
+def test_render_and_eval_marks_replay_in_order(scene):
+    cam = ring_cams(1)[0]
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    target = torch.zeros(3, H, W, device="cuda")
+    render = trainer.make_render(W, H, TILING)
+    evals = trainer.make_eval_step(trainer.TrainConfig(tiling=TILING), W, H)
+    with runtime.spanning():
+        render(scene, cam, bg)
+        evals(scene, cam, target, bg)
+        assert mark_names(profiled_events(lambda: render(scene, cam, bg), 2)) == list(
+            runtime.RENDER_SPANS) * 2
+        assert mark_names(profiled_events(lambda: evals(scene, cam, target, bg), 2)) == list(
+            runtime.EVAL_SPANS) * 2
+    assert render.captured.captures == evals.captured.captures == 1

@@ -23,17 +23,20 @@ Phases (any failure exits non-zero):
      port's PLY round trip, four 1920x1080 views through the serving render
      (``make_render``: captured on its first call, then replayed) with the
      budget from ``pair_budget``, each held bit for bit to the eager render
-     (image, radii, depth, pairs); every kernel must launch on every view.
-     Then each kernel is held against its plain version (K2 also against
-     its own second run, bit for bit) and timed on the bench view's own
-     inputs.
+     (image, radii, depth, pairs); every kernel of the render (the
+     preprocess pair's forward, K1, K2) must launch on every view. Then
+     each kernel is held against its plain version (K2 also against its
+     own second run, bit for bit) and timed on the bench view's own inputs,
+     and ``stages_ms`` times the render's stages, the pair's forward beside
+     the composed preprocess it replaces.
   4. the port's render CLI on a small COLMAP scene that the port writes.
   5. the training step: at 256x192 with 20k splats, the whole step's
      gradients on route "cuda" against route "plain"; then the bench scene
      at 1920x1080 trains for TRAIN_STEPS + 1 steps of ``make_train_step``
      under the same budget, eager (``capture=False``) and captured from the
      same start (a ``train_step:`` line each: loss finite, 0 dropped pairs,
-     K1-K4 launched once and K5 twice per step, every parameter group
+     the preprocess pair and K1-K4 launched once and K5 twice per step,
+     every parameter group
      moved; ``step_graph_check``: each captured loss within STEP_GRAPH_TOL
      of the eager one, each parameter and moment column after the last step
      within STEP_GRAPH_TOL of its largest |eager|). Then K3, K4 and K5 are
@@ -41,7 +44,14 @@ Phases (any failure exits non-zero):
      second runs, bit for bit; K5 bit for bit in both directions, its VJP
      launched on the unpadded cotangent as ``BlurValid.backward`` does) and
      timed on the bench step's own inputs, beside one-call library
-     equivalents; ``train_stages_ms`` splits the step and the ``graph:``
+     equivalents. The preprocess pair is held against its plain version on
+     the trained leaves, the bench camera and K4's table gradient
+     (``phase5_preprocess``: integer fields, visibility and the rect
+     columns equal, the other float columns and fields within
+     PREP_FLOAT_TOL of the plain value, every raw leaf's and the NDC
+     offset's gradient within PREP_GRAD_TOL of the leaf's norm) and each
+     direction timed beside its plain version and its byte bound;
+     ``train_stages_ms`` splits the step and the ``graph:``
      line's profile lines give its device idle share. Each step's host
      syncs are counted (``torch.cuda.set_sync_debug_mode("warn")``).
   6. the training loop through the train CLI at 1920x1080, the operating
@@ -229,7 +239,8 @@ each phase-7 CLI's launches, ``batched_launches`` phase 8's per B,
 ``mesh_launches`` phase 9's over the 1x1 mesh's TRAIN_STEPS timed replays
 and on each rank's first step of the (1, 4) and (2, 2) meshes,
 ``bench_launches`` phase 10's bench headline's per step,
-``bench_err`` each phase-10 entry path's errors, and the ``blur`` row's
+``bench_err`` each phase-10 entry path's errors (null for the preprocess
+pair, which neither the mesh nor the bench runs), and the ``blur`` row's
 ``windows`` phase 12's K5 rows per window)
 on the line before the last, and
 ``{"ok": true, "device": {...}}`` last. Imports nothing of JAX.
@@ -292,7 +303,27 @@ STEP_GRAD_TOL = 1e-4  # route "cuda" against "plain", share of each group's max
 # differ from run to run
 STEP_GRAPH_TOL = 1e-6
 TRAIN_STEPS = 10
-RENDER_KERNELS = ("expand_pairs", "composite_fwd")  # the render path's kernels
+# the kernels of ``rasterize`` on activated tensors, which composes its
+# preprocess (``scripts/profile_render.py``, ``scripts/bench.py``), and of a
+# scene render on route "cuda" (``render_scene``), whose preprocess is the
+# kernel pair's forward (``ops/preprocess.py``)
+RASTER_KERNELS = ("expand_pairs", "composite_fwd")
+RENDER_KERNELS = ("preprocess_fwd",) + RASTER_KERNELS
+# the preprocess pair against its plain version at the bench step's size:
+# float columns and fields relative to the plain value (both round every
+# operation in the same order; cull_r2's log an ulp or two apart), each
+# gradient as a share of its leaf's norm (the backward sums in another order)
+PREP_FLOAT_TOL = 1e-6
+PREP_GRAD_TOL = 1e-5
+# the mesh step's kernels: its sharded preprocess composes the activations,
+# so the preprocess kernel pair (ops/preprocess.py) never runs there
+MESH_KERNELS = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_sum", "blur")
+
+
+def launched_kernels(launches: dict) -> dict:
+    """The kernels that ran, with their counts (the composed paths, as the
+    bench's and the mesh's, launch no preprocess kernel)."""
+    return {k: n for k, n in launches.items() if n}
 
 
 def fail(msg: str) -> None:
@@ -443,6 +474,8 @@ def probe():
 
 
 def _prep(scene, cam, w, h):
+    """The composed preprocess: the plain version of the kernel pair's
+    forward, and the mesh's and ``rasterize``'s own on activated tensors."""
     from gaussian_splatting_lightning_tpu_torch.ops.common import preprocess
 
     return preprocess(
@@ -592,6 +625,7 @@ def phase3(work: Path):
     from gaussian_splatting_lightning_tpu_torch.ops.binning import expand_pairs, expand_pairs_plain
     from gaussian_splatting_lightning_tpu_torch.ops.budget import estimate_pairs, pair_budget
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
+    from gaussian_splatting_lightning_tpu_torch.ops.preprocess import preprocess_scene
     from gaussian_splatting_lightning_tpu_torch.training.trainer import make_render, render_scene
 
     w, h, blk = 1920, 1080, 32
@@ -685,8 +719,10 @@ def phase3(work: Path):
     if rel > 1e-4:
         fail("device num_pairs is more than 0.01% off the host estimate")
 
-    # each kernel against its plain version, and timed, on the bench view's inputs
-    prep = _prep(scene, cams[0], w, h)
+    # each kernel against its plain version, and timed, on the bench view's
+    # inputs: the preprocess as the render runs it, the kernel pair's forward
+    with torch.no_grad():
+        prep, _ = preprocess_scene(scene, cams[0], w, h, blk)
     k1, k2, ctx = compare_kernels(prep, w, h, blk, -(-budget // 128) * 128, bg)
     if k1 != 0:
         fail(f"K1 at 1080p: (key, gauss) differ from the plain version's by up to {k1}")
@@ -729,13 +765,16 @@ def phase3(work: Path):
     stages = {
         "render_scene": cuda_time_ms(
             lambda: render_scene(scene, cams[0], w, h, bg, tiling), 10),
-        "preprocess": cuda_time_ms(lambda: _prep(scene, cams[0], w, h), 10),
+        "preprocess (the pair's forward, preprocess_scene)": cuda_time_ms(
+            torch.no_grad()(lambda: preprocess_scene(scene, cams[0], w, h, blk)), 10),
+        "preprocess, composed (its plain version, no table)": cuda_time_ms(
+            lambda: _prep(scene, cams[0], w, h), 10),
         "build_sorted_bins": cuda_time_ms(
             lambda: binning.build_sorted_bins(prep, gx, gy, m, block=blk), 10),
         "expand_inputs (inside build_sorted_bins)": cuda_time_ms(
             lambda: binning.expand_inputs(prep, gx, gy, 0, gy, blk), 10),
         "expand_pairs (K1, inside build_sorted_bins)": k1_ms,
-        "feature_table": cuda_time_ms(
+        "feature_table (plain version's; the pair's forward writes it)": cuda_time_ms(
             lambda: rasterize.feature_table(prep, w, h, blk), 10),
         "composite_fwd (K2)": k2_ms,
     }
@@ -864,9 +903,134 @@ def check_step_routes():
         fail(f"step gradients on route cuda differ from route plain: {bad}")
 
 
+def preprocess_pair(scene, cam, w, h, blk, g_table, launches):
+    """The preprocess kernel pair against its plain version (the composed
+    activations, ``preprocess`` and ``feature_table`` under autograd) on
+    the bench step's size: the same raw leaves, zero NDC offset and camera,
+    and ``g_table`` (K4's table gradient, which feeds only the rows the view
+    sees) as the table's cotangent. Integer fields, visibility and the rect
+    columns equal; the other table columns, p_pix, depth and cull_r2 within
+    PREP_FLOAT_TOL of the plain value; every raw leaf's and the offset's
+    gradient within PREP_GRAD_TOL of the leaf's norm; one launch of each
+    kernel. Then each direction is timed beside its plain version (both
+    under autograd, as the step runs them) and its byte bound. Returns the
+    two rows of the ``kernels`` line."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
+        PARAM_NAMES,
+        GaussianParams,
+    )
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.ops.preprocess import (
+        PreprocessKernels,
+        _camera_arrays,
+        preprocess_scene,
+        preprocess_scene_plain,
+    )
+
+    def run(fn):
+        leaves = {k: getattr(scene.params, k).detach().requires_grad_() for k in PARAM_NAMES}
+        live = dataclasses.replace(scene, params=GaussianParams(**leaves))
+        off = torch.zeros(scene.capacity, 2, device=scene.device, requires_grad=True)
+        prep, table = fn(live, cam, w, h, blk, False, off)
+        inputs = list(leaves.values()) + [off]
+        grads = torch.autograd.grad(table, inputs, g_table, retain_graph=True)
+        return live, off, inputs, prep, table, dict(zip(list(PARAM_NAMES) + ["offset"], grads))
+
+    def equal(a, b):  # NaN where both have it
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+    def rel(a, b):  # largest |a - b| / |b| over the finite b; inf if the NaNs differ
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return math.inf
+        fin = torch.isfinite(b)
+        d = (a - b)[fin].abs()
+        return float((d / b[fin].abs().clamp_min(1e-30)).max()) if d.numel() else 0.0
+
+    def of_norm(a, b):  # largest |a - b| over the leaf's norm, finite elements
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return math.inf
+        fin = torch.isfinite(b)
+        return float((a - b)[fin].abs().max() / b[fin].norm().clamp_min(1e-30))
+
+    torch.cuda.synchronize()
+    before = dict(_build.launches)
+    live, off, inputs, pk, tk, gk = run(preprocess_scene)
+    torch.cuda.synchronize()
+    ran = {k: _build.launches[k] - before[k] for k in ("preprocess_fwd", "preprocess_bwd")}
+    _, off_p, inputs_p, pp, tp, gp = run(preprocess_scene_plain)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ints = {f: equal(getattr(pk, f), getattr(pp, f))
+                for f in ("radius", "radius_bin", "visible")}
+        ints["rect"] = equal(tk[:, 10:], tp[:, 10:])
+        floats = {f"col{c}": rel(tk[:, c], tp[:, c]) for c in range(10)}
+        floats.update({f: rel(getattr(pk, f), getattr(pp, f))
+                       for f in ("p_pix", "depth", "cull_r2")})
+        grads = {k: of_norm(gk[k], gp[k]) for k in gk}
+        fwd_abs = max(float(torch.nan_to_num((tk - tp).abs()).max()),
+                      *(float(torch.nan_to_num((getattr(pk, f) - getattr(pp, f)).abs()).max())
+                        for f in ("p_pix", "depth", "cull_r2")))
+        bwd_abs = max(float(torch.nan_to_num((gk[k] - gp[k]).abs()).max()) for k in gk)
+    del gp
+
+    # times: each direction alone, the backward called as autograd calls it
+    n, views = scene.capacity, 1
+    par = live.params
+    degree = min(int(scene.active_sh_degree), scene.max_sh_degree)
+    bwd_ctx = types.SimpleNamespace(
+        saved_tensors=(par.xyz, par.features_dc, par.features_rest, par.opacity, par.scales,
+                       par.quats, off, *_camera_arrays(cam)),
+        static=(w, h, degree, False, blk, 1.0, False))
+    fwd_ms = cuda_time_ms(lambda: preprocess_scene(live, cam, w, h, blk, False, off), 20)
+    bwd_ms = cuda_time_ms(lambda: PreprocessKernels.backward(bwd_ctx, g_table), 20)
+    fwd_plain_ms = cuda_time_ms(lambda: preprocess_scene_plain(live, cam, w, h, blk, False,
+                                                                off), 3)
+    bwd_plain_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(tp, inputs_p, g_table, retain_graph=True), 3)
+    # bytes a splat: the forward reads the raw parameters (59 floats at SH
+    # degree 3), the offset and alive, and writes the table row and the
+    # binning's fields (p_pix, depth, radius, radius_bin, cull_r2, visible);
+    # the backward reads the parameters, the offset and the table gradient's
+    # ten differentiable columns, and writes every parameter's gradient and
+    # the offset's
+    param_b = sum(getattr(par, k)[0].numel() for k in PARAM_NAMES) * 4
+    fwd_bytes = n * (param_b + 1 + views * (8 + 64 + 8 + 4 * 4 + 1))
+    bwd_bytes = n * (2 * param_b + views * (8 + 40 + 8))
+    check = {"launches": ran, "equal": ints, "float_rel_err": floats, "float_tol": PREP_FLOAT_TOL,
+             "grad_err_of_norm": grads, "grad_tol": PREP_GRAD_TOL,
+             "bytes_per_splat": [fwd_bytes / n, bwd_bytes / n],
+             "ms": [fwd_ms, bwd_ms], "plain_ms": [fwd_plain_ms, bwd_plain_ms]}
+    print("phase5_preprocess: " + json.dumps(check), flush=True)
+    if ran != {"preprocess_fwd": 1, "preprocess_bwd": 1}:
+        fail(f"phase 5: the preprocess pair launched {ran}, want one each")
+    if not all(ints.values()):
+        fail(f"phase 5: the preprocess pair's integer fields differ: {ints}")
+    if not max(floats.values()) <= PREP_FLOAT_TOL:
+        fail(f"phase 5: the preprocess pair's floats differ: {floats}")
+    if not max(grads.values()) <= PREP_GRAD_TOL:
+        fail(f"phase 5: the preprocess pair's gradients differ: {grads}")
+    common = {"route": "cuda", "source": f"{PKG}/csrc/preprocess.cu",
+              "replaces": "none: gaussian_splatting_lightning_tpu/ops/common.py:47 (jnp)",
+              "bound_by": "bytes", "library_ms": None}
+    return [
+        dict(common, name="preprocess_fwd", launches=launches["preprocess_fwd"],
+             max_abs_err=fwd_abs, ms=fwd_ms, plain_ms=fwd_plain_ms,
+             bound_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3),
+        dict(common, name="preprocess_bwd", launches=launches["preprocess_bwd"],
+             max_abs_err=bwd_abs, ms=bwd_ms, plain_ms=bwd_plain_ms,
+             bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3),
+    ]
+
+
 def phase5(scene, budget):
-    """The training step on the bench scene at 1080p, then K3, K4 and K5
-    against their plain versions and timed on that step's inputs."""
+    """The training step on the bench scene at 1080p, then K3, K4, K5 and
+    the preprocess pair against their plain versions and timed on that
+    step's inputs."""
     import dataclasses
     import types
 
@@ -899,8 +1063,7 @@ def phase5(scene, budget):
     bg = torch.zeros(3, device="cuda")
     tiling = TilingConfig(max_pairs=budget, block=blk)
     cfg = trainer.TrainConfig(tiling=tiling)
-    expected = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
-                "segment_sum": 1, "blur": 2}
+    expected = dict(BENCH_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
     start = {k: getattr(scene.params, k).clone() for k in PARAM_NAMES}
     # TRAIN_STEPS + 1 steps eager and captured from the same start: step 0
     # warms up (captured: warm-up, capture, replay), the rest are timed
@@ -1061,6 +1224,7 @@ def phase5(scene, budget):
     for name, (rel, tol, _) in list(checks.items())[:2]:
         if not rel <= tol:
             fail(f"{name} at 1080p: error {rel} (share of the column maximum) > {tol}")
+    pair_rows = preprocess_pair(scene, cam, w, h, blk, sk, launches)
 
     # times, bounds and one-call library equivalents
     k3_ms = cuda_time_ms(lambda: rasterize.composite_bwd(*k3_args), 10)
@@ -1181,7 +1345,7 @@ def phase5(scene, budget):
          "library_ms": k5_lib_ms, "vjp_ms": k5_vjp_ms,
          "vjp_bound_ms": k5_vjp_bytes / HBM_BYTES_PER_S * 1e3,
          "vjp_library_ms": k5_vjp_lib_ms},
-    ]
+    ] + pair_rows
 
 
 # phase 12: the rasterizer's precomputed inputs and scale modifier, and K5
@@ -1252,8 +1416,7 @@ def phase12(scene, budget):
     same["stats"] = d_stats == p_stats
     grad_err = {k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 for k, a, b in (("xyz", p_gm, d_gm), ("opacity", p_go, d_go))}
-    want = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1, "segment_sum": 1,
-            "blur": 0}
+    want = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1, "segment_sum": 1}
     summary["a"] = {"bits_equal": same, "grad_bits_equal": {
         "xyz": torch.equal(p_gm, d_gm), "opacity": torch.equal(p_go, d_go)},
         "grad_rel_err": grad_err, "tolerance": PRECOMP_TOL, "launches": counted["precomp"],
@@ -1262,7 +1425,7 @@ def phase12(scene, budget):
         fail(f"phase 12 (a): the precomputed inputs change the render: {same}")
     if not max(grad_err.values()) <= PRECOMP_TOL:
         fail(f"phase 12 (a): gradients differ from the derived render's: {grad_err}")
-    if any(counted[k] != want for k in counted):
+    if any(launched_kernels(counted[k]) != want for k in counted):
         fail(f"phase 12 (a): launches {counted}, expected {want} a render")
     if p_stats["num_dropped_pairs"] != 0:
         fail(f"phase 12 (a): {p_stats['num_dropped_pairs']} pairs dropped")
@@ -2123,7 +2286,7 @@ def phase7(work: Path, run_dir: Path, scene_dir: Path, loop_psnr: float, bench_p
     trace_dir = work / "trace"
     (rows, _), counts, prof_s = run_counted(prof_cli.main, ["--trace-dir", str(trace_dir),
                                                             "--top", "60"])
-    kernels_ran("profile_render", counts, RENDER_KERNELS)
+    kernels_ran("profile_render", counts, RASTER_KERNELS)
     names = " ".join(r[0] for r in rows)
     traces = list(trace_dir.glob("trace-*.json"))
     if "expand_pairs_kernel" not in names or "composite_fwd_kernel" not in names:
@@ -2280,8 +2443,7 @@ def phase8(scene, budget):
         size=(len(cams), 3, h, w)).astype(np.float32)).cuda()
     tiling = TilingConfig(max_pairs=budget, block=blk)
     m = -(-budget // 128) * 128
-    expected = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
-                "segment_sum": 1, "blur": 2}
+    expected = dict(BENCH_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
     rows, launches, by_kernel, graphs = {}, {}, {}, {}
     for b in BATCH_SIZES:
         cfg = trainer.TrainConfig(tiling=tiling, batch_views=b)
@@ -2572,7 +2734,7 @@ def phase9_nccl(scene, budget):
         fail(f"phase 9 (a): the captured mesh step differs from the eager one: "
              f"{row['captured_vs_eager_bits_equal']}")
     want = {k: TRAIN_STEPS * n for k, n in BENCH_STEP_LAUNCHES.items()}
-    if launches != want or row["captures"] != 1:
+    if launched_kernels(launches) != want or row["captures"] != 1:
         fail(f"phase 9 (a): {TRAIN_STEPS} replays launched {launches} (want {want}), "
              f"{row['captures']} captures")
     return launches
@@ -2829,7 +2991,7 @@ def phase9_ranks(budget: int, work: Path):
             and all(e <= MESH_GRAD_TOL for e in r[shape]["grad_rel_err"].values())
             and r[shape]["render_err"] <= MESH_RENDER_TOL
             and r[shape]["render_depth_err"] <= MESH_RENDER_TOL
-            and all(r[shape]["launches"][k] >= 1 for k in _build.SOURCES))]
+            and all(r[shape]["launches"][k] >= 1 for k in MESH_KERNELS))]
         if bad or any(r["ref_dropped"] for r in ranks):
             fail(f"phase 9 (b), mesh {shape}: ranks {bad} fail their checks")
         checked = {r["rank"]: r[shape]["band_kernels"] for r in ranks
@@ -3037,7 +3199,7 @@ def phase9_cli_nccl(work: Path, scene_dir: Path, loop_run: Path):
         if not all("0" in caps.get(name, {}) for name in (step_graph, "exposure_update")):
             fail(f"phase 9 (d): {step_graph} and the exposure update did not both capture "
                  f"at step 0: {caps}")
-    if any(m["launches"][k] < 1 for k in _build.SOURCES):
+    if any(m["launches"][k] < 1 for k in MESH_KERNELS):
         fail(f"phase 9 (d): a kernel was not launched on the mesh: {m['launches']}")
 
 
@@ -3180,7 +3342,7 @@ def phase10() -> dict:
             or small["extra"]["dropped_pairs"] or not math.isfinite(head["value"]):
         fail(f"phase 10: bench pairs {ex['pairs']}, budget {ex['pair_budget']}, dropped "
              f"{ex['dropped_pairs']}, value {head['value']}")
-    if ex["launches"] != BENCH_STEP_LAUNCHES:
+    if launched_kernels(ex["launches"]) != BENCH_STEP_LAUNCHES:
         fail(f"phase 10: the bench step launched {ex['launches']} per step")
     if not (parity["image_max_abs"] <= PARITY_TOL and parity["grad_max_rel"] <= PARITY_TOL):
         fail(f"phase 10: bench parity {parity}")
@@ -3659,7 +3821,7 @@ def mesh4_cli(argv, out_dir: Path, shape, what: str, resume=None) -> list:
         and all(r["captures_s_by_step"][g].keys() == r0["captures_s_by_step"][g].keys()
                 for g in r0["captures_s_by_step"])
         and same_logs(r["history"], r0["history"]) and r["max_pairs"] == r0["max_pairs"]
-        and all(r["launches"][k] >= 1 for k in _build.SOURCES))]
+        and all(r["launches"][k] >= 1 for k in MESH_KERNELS))]
     if bad:
         fail(f"phase 11 (b) {what}: ranks {bad} differ or miss a check: "
              f"{json.dumps(ranks)[:6000]}")
@@ -3906,9 +4068,9 @@ def main() -> int:
         row["mesh_launches"] = {
             shape: (n[row["name"]] if isinstance(n, dict) else [r[row["name"]] for r in n])
             for shape, n in mesh_launches.items()}
-        row["mesh_band_err"] = band_errs[row["name"]]
+        row["mesh_band_err"] = band_errs.get(row["name"])
         row["bench_launches"] = bench_launches[row["name"]]
-        row["bench_err"] = bench_errs[row["name"]]
+        row["bench_err"] = bench_errs.get(row["name"])
         if row["name"] == "blur":
             row["windows"] = blur_windows
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)

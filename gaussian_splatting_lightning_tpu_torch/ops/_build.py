@@ -2,7 +2,8 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds). Builds happen at first use, from the checkout's sources
+build takes seconds); the kernels of one source (the preprocess pair) share
+its library. Builds happen at first use, from the checkout's sources
 only, into ``_build/`` beside ``csrc/`` (listed in ``.gitignore``), keyed by a
 hash of the source and the flags. A missing ``nvcc`` is an error: there is
 no fallback for a CUDA tensor.
@@ -36,6 +37,8 @@ SOURCES = {
     "composite_bwd": "composite_bwd.cu",
     "segment_sum": "segment_sum.cu",
     "blur": "blur.cu",
+    "preprocess_fwd": "preprocess.cu",
+    "preprocess_bwd": "preprocess.cu",
 }
 # libraries built and loaded like the kernels, but not counted in ``launches``
 LIBRARIES = dict(SOURCES, span_mark="span_mark.cu")
@@ -43,11 +46,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# K1's whole slot arithmetic must round like the plain version's separate
-# PyTorch ops; K2, K3 and K5 round what must match explicitly (__fmul_rn &
-# co.) and let the rest contract to FMA; K4 only adds
+# K1's and the preprocess pair's whole arithmetic must round like the plain
+# versions' separate PyTorch ops; K2, K3 and K5 round what must match
+# explicitly (__fmul_rn & co.) and let the rest contract to FMA; K4 only adds
 EXTRA_FLAGS = {"expand_pairs": ("--fmad=false",), "composite_fwd": (),
-               "composite_bwd": (), "segment_sum": (), "blur": (), "span_mark": ()}
+               "composite_bwd": (), "segment_sum": (), "blur": (), "span_mark": (),
+               "preprocess_fwd": ("--fmad=false",), "preprocess_bwd": ("--fmad=false",)}
 
 
 def nvcc_flags(name: str) -> tuple:
@@ -55,7 +59,7 @@ def nvcc_flags(name: str) -> tuple:
 
 # C entry of each kernel: (symbol, argtypes); pointers and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = {
     "expand_pairs": ("gs_expand_pairs", [_VP] * 5 + [_I] * 7 + [_VP] * 3),
     "composite_fwd": ("gs_composite_fwd", [_VP] * 6 + [_I] * 9 + [_VP]),
@@ -63,6 +67,8 @@ ENTRIES = {
     "segment_sum": ("gs_segment_sum", [_VP] * 5 + [_I] * 3 + [_VP]),
     "blur": ("gs_blur_valid", [_VP] * 2 + [_I] * 5 + [_VP] * 2),
     "span_mark": ("gs_span_mark", [_I, _VP]),
+    "preprocess_fwd": ("gs_preprocess_fwd", [_VP] * 20 + [_I] * 10 + [_F] * 2 + [_VP]),
+    "preprocess_bwd": ("gs_preprocess_bwd", [_VP] * 20 + [_I] * 7 + [_F] + [_VP]),
 }
 
 launches = {name: 0 for name in SOURCES}
@@ -85,9 +91,11 @@ def nvcc_path() -> str:
 
 
 def _library(name: str) -> Path:
+    """The library of kernel ``name``: named by its source, keyed by a hash
+    of the source and the flags."""
     src = (SRC_DIR / LIBRARIES[name]).read_bytes()
     digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(LIBRARIES[name]).stem}-{digest}.so"
 
 
 def build(names=None) -> dict:
@@ -96,7 +104,8 @@ def build(names=None) -> dict:
     compiled; the ptxas report of each lands next to its library as ``.log``.
     """
     names = list(SOURCES) if names is None else list(names)
-    todo = [n for n in names if not _library(n).exists()]
+    # one nvcc per library: the kernels of one source share it
+    todo = list({_library(n): n for n in names if not _library(n).exists()}.values())
     if not todo:
         return {}
     nvcc = nvcc_path()

@@ -22,7 +22,9 @@ with K2's alpha chain and writes one 10-float gradient row per pair to the
 pair's expansion slot, then K4 (``csrc/segment_sum.cu``), which sums each
 splat's contiguous slot range into the (N, 16) gradient of the feature
 table. Autograd carries that gradient on through ``feature_table`` and
-``preprocess`` to the parameters. Pair gradients stay f32: the JAX package's
+``preprocess`` to the parameters, or, where ``ops/preprocess.py``'s kernel
+pair wrote the table (``rasterize_prepared``, the trainer's ``cuda`` route
+on the card), into that pair's backward. Pair gradients stay f32: the JAX package's
 bf16 routing was an answer to its sort payload and has no switch here.
 
 A stack of B views (a stacked ``Camera``, the view-batched train step) runs
@@ -509,7 +511,6 @@ def rasterize(
     alike), with the per-view ``num_pairs_per_view`` and
     ``num_dropped_pairs_per_view`` (B,) beside them."""
     config = config or TilingConfig()
-    blk = config.resolve_block("cuda")
     if prep is None:
         prep = preprocess(
             means3d, opacities, scales, quats, sh, camera, width, height,
@@ -517,6 +518,18 @@ def rasterize(
             scale_modifier=scale_modifier, colors_precomp=colors_precomp,
             cov3d_precomp=cov3d_precomp,
         )
+    return rasterize_prepared(prep, None, width, height, background, config,
+                              tile_y_offset, grid_y_local, early_stop, plain)
+
+
+def rasterize_prepared(prep, gfeat, width, height, background, config=None,
+                       tile_y_offset: int = 0, grid_y_local=None,
+                       early_stop: bool = True, plain: bool = False):
+    """``rasterize`` from its preprocess on: the binning, the feature table
+    (built from ``prep`` when ``gfeat`` is None; ``ops/preprocess`` writes it
+    itself), K2 and the image, with ``rasterize``'s return contract."""
+    config = config or TilingConfig()
+    blk = config.resolve_block("cuda")
     views = prep.depth.shape[0] if prep.depth.dim() == 2 else None
     grid_x, grid_y = binning.grid_shape(width, height, blk, blk)
     banded = grid_y_local is not None
@@ -531,10 +544,13 @@ def rasterize(
     runtime.mark("composite", prep.depth)
     # with spans on, the backward marks "preprocess_bwd" once the table's
     # gradient has reached every input of it: K3, K4 and their glue are done
-    fields = ("p_pix", "depth", "conic", "rgb", "opacity")
-    table_in = dataclasses.replace(prep, **dict(zip(fields, runtime.mark_backward(
-        "preprocess_bwd", *(getattr(prep, f) for f in fields)))))
-    gfeat = feature_table(table_in, width, height, blk)
+    if gfeat is None:
+        fields = ("p_pix", "depth", "conic", "rgb", "opacity")
+        table_in = dataclasses.replace(prep, **dict(zip(fields, runtime.mark_backward(
+            "preprocess_bwd", *(getattr(prep, f) for f in fields)))))
+        gfeat = feature_table(table_in, width, height, blk)
+    else:
+        gfeat, = runtime.mark_backward("preprocess_bwd", gfeat)
     bg = torch.as_tensor(background, dtype=torch.float32).to(gfeat.device)
     if views is None:
         bg = bg.reshape(3)

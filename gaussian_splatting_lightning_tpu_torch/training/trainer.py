@@ -2,12 +2,13 @@
 
 Counterpart of ``gaussian_splatting_lightning_tpu/training/trainer.py`` on
 one device. One ``train_step`` is render -> loss -> backward -> Adam ->
-densification statistics, PyTorch around the kernels (K1 and K2 in the
-render, K5 in the loss and its backward, K3 and K4 in the render's
-backward). On the card the step, the eval step, the serving render
-(``make_render``) and the exposure update (``training/exposure.py``) each
-replay a captured CUDA graph (``utils/graph.py``), the counterpart of the
-JAX package's ``jax.jit``; on the CPU, with ``capture=False`` and on the
+densification statistics, PyTorch around the kernels (the preprocess
+pair's forward, K1 and K2 in the render, K5 in the loss and its backward,
+K3, K4 and the preprocess pair's backward in the render's backward). On the
+card the step, the eval step, the serving render (``make_render``) and the
+exposure update (``training/exposure.py``) each replay a captured CUDA
+graph (``utils/graph.py``), the counterpart of the JAX package's
+``jax.jit``; on the CPU, with ``capture=False`` and on the
 ``plain`` and ``xla`` routes they run eagerly.
 With ``batch_views`` B > 1 the step takes B views stacked along a leading
 axis and renders them in one pass (each kernel launched once for all B, as
@@ -58,7 +59,8 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
     GaussianScene,
 )
 from gaussian_splatting_lightning_tpu_torch.ops.common import RenderOutput, TilingConfig
-from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize
+from gaussian_splatting_lightning_tpu_torch.ops.preprocess import preprocess_scene
+from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize, rasterize_prepared
 from gaussian_splatting_lightning_tpu_torch.ops.rasterize_tiled import rasterize_tiled
 from gaussian_splatting_lightning_tpu_torch.training.densify import (
     DensifyConfig,
@@ -161,8 +163,16 @@ def render_scene(
     rasterize_fn=None,
 ):
     """Render with live activations — the reference's ``render`` wrapper
-    (gs_lightning_module.py:301-350). Returns (RenderOutput, stats)."""
+    (gs_lightning_module.py:301-350). Returns (RenderOutput, stats). On the
+    ``cuda`` route a scene on the card goes through the preprocess kernel
+    pair (``ops/preprocess.py``), from its raw parameters; everything else
+    composes the activations, ``preprocess`` and the feature table."""
     rasterize_fn = rasterize_fn or rasterize
+    if rasterize_fn is rasterize and scene.device.type == "cuda":
+        prep, gfeat = preprocess_scene(scene, camera, width, height,
+                                       tiling.resolve_block("cuda"), antialias,
+                                       means2d_ndc_offset)
+        return rasterize_prepared(prep, gfeat, width, height, background, tiling)
     return rasterize_fn(
         scene.params.xyz,
         scene.get_opacity(),

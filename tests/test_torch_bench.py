@@ -155,7 +155,8 @@ def test_run_and_parity_gate_on_the_cpu():
         graft._synthetic_scene(N, N, scale=0.008), graft._camera(W, H), W, H)
     # CPU tensors run the plain versions, which count no launch
     assert set(res["launches"]) == {"expand_pairs", "composite_fwd", "composite_bwd",
-                                    "segment_sum", "blur"}
+                                    "segment_sum", "blur", "preprocess_fwd",
+                                    "preprocess_bwd"}
     assert not any(res["launches"].values())
     row = bench.parity_gate(W, H, N, device="cpu", iters=1)["routing_f32"]
     assert row["dropped_pairs"] == 0 and row["tile_overflow"] == 0

@@ -9,7 +9,13 @@ the sums over up to 1024 pixels run in another order and the position rows
 cancel); K4 (``csrc/segment_sum.cu``) within 1e-5 of each column's largest
 magnitude (sums of a few rows in another order), and the same bits on a
 second run; K5 (``csrc/blur.cu``) bit-identical in both directions (both
-round every product and sum in the same order). These tests need an NVIDIA
+round every product and sum in the same order). The preprocess pair
+(``csrc/preprocess.cu``) against its plain version, the composed
+activations, ``preprocess`` and ``feature_table`` under autograd: integer
+and boolean fields equal, float columns within 1e-6 relatively (both round
+every operation in the same order), gradients within 1e-5 of each splat's
+scale (the backward sums in another order); a captured train step runs
+the pair once a replay and never the composition. These tests need an NVIDIA
 GPU and ``nvcc``; elsewhere they skip with a reason. On the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -21,6 +27,7 @@ K2 and K3 case also checks that a second run gives the same bits.
 This file imports no JAX: the machine with the card has none.
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -29,13 +36,20 @@ import torch
 import numpy as np
 
 from gaussian_splatting_lightning_tpu_torch import interop
-from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
+from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES, GaussianParams
 from gaussian_splatting_lightning_tpu_torch.ops import _build, binning, rasterize, ssim
 from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig, preprocess
+from gaussian_splatting_lightning_tpu_torch.ops.preprocess import (
+    preprocess_scene,
+    preprocess_scene_plain,
+)
 from gaussian_splatting_lightning_tpu_torch.training import trainer
 # pytest puts tests/ on sys.path; a package named "tests" elsewhere on the
 # path may shadow this directory's as a package
 from torch_expand_layouts import EXPAND_LAYOUTS, GX, GY, expand_case
+from torch_preprocess_cases import cameras as edge_cameras
+from torch_preprocess_cases import cotangent as edge_cotangent
+from torch_preprocess_cases import edge_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -683,3 +697,171 @@ def test_batched_expand_pairs_on_uneven_runs():
     assert torch.equal(key, key_p) and torch.equal(gauss, gauss_p)
     assert inp.total.tolist() == [17801, 1500, 0]
     assert bool((key[2] == GX * GY).all()) and not gauss[2].any()
+
+
+# ---- the preprocess kernel pair (csrc/preprocess.cu) ----------------------
+
+PREP_N = 5000
+# name: (max SH degree, active degree, antialias, views, tile edge, scale modifier)
+PREP_CASES = {
+    **{f"deg{d}{'-aa' if aa else ''}": (max(d, 3), d, aa, 1, 32, 1.0)
+       for d in range(5) for aa in (False, True)},
+    "views4": (3, 3, False, 4, 32, 1.0),
+    "views4-aa": (3, 3, True, 4, 32, 1.0),
+    "views4-deg0": (3, 0, False, 4, 32, 1.0),
+    "block16-modifier": (3, 3, False, 1, 16, 0.5),
+}
+
+
+def _prep_run(fn, scene, cam, views, block, aa, sm, ct):
+    """``fn``'s (Preprocessed, table) and the gradients of ``(table * ct).sum()``
+    in every raw leaf and the NDC offset, by name."""
+    leaves = {k: getattr(scene.params, k).detach().requires_grad_() for k in PARAM_NAMES}
+    live = dataclasses.replace(scene, params=GaussianParams(**leaves))
+    off = torch.zeros(((views,) if views > 1 else ()) + (scene.capacity, 2), device="cuda",
+                      requires_grad=True)
+    prep, table = fn(live, cam, W, H, block, aa, off, sm)
+    grads = torch.autograd.grad((table * ct).sum(), list(leaves.values()) + [off])
+    return prep, table, dict(zip(list(PARAM_NAMES) + ["offset"], grads))
+
+
+def _nan_equal(a, b) -> bool:
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _float_err(a, b) -> float:
+    """Largest |a - b| / |b| over the finite elements of ``b`` (0 where both
+    are 0); inf where the NaN patterns differ."""
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return math.inf
+    fin = torch.isfinite(b)
+    d = (a - b)[fin].abs()
+    return float((d / b[fin].abs().clamp_min(1e-30)).max()) if d.numel() else 0.0
+
+
+def _grad_err(a, b) -> float:
+    """Largest |a - b| over the L2 norm of ``b`` (the leaf's norm), both
+    over the finite elements; inf where the NaN patterns differ (with
+    antialiasing a splat exactly on the camera plane has a NaN opacity
+    scale, and 0 times it is NaN on both sides)."""
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return math.inf
+    fin = torch.isfinite(b)
+    return float((a - b)[fin].abs().max() / b[fin].norm().clamp_min(1e-30))
+
+
+def _row_err(a, b) -> float:
+    """Each splat's largest |a - b| over the larger of its largest |b| and
+    the median splat's, the worst over the splats; inf where the NaN
+    patterns differ. For a cotangent on every row: splats behind or on the
+    camera plane then get gradients up to 1e16, which would swamp a norm."""
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return math.inf
+
+    def rows(x):  # one row a splat; a view's splat for the (B, N, 2) offset
+        x = torch.nan_to_num(x)
+        return x.reshape(-1, 2) if x.dim() == 3 and x.shape[-1] == 2 else x.reshape(
+            x.shape[0], -1)
+
+    a, b = rows(a), rows(b)
+    row = b.abs().amax(dim=1)
+    scale = torch.maximum(row, row.median()).clamp_min(1e-30)
+    return float(((a - b).abs().amax(dim=1) / scale).max())
+
+
+@pytest.mark.parametrize("case", list(PREP_CASES))
+def test_preprocess_kernels_match_plain(case):
+    """The kernel pair against its plain version (the composed activations,
+    ``preprocess`` and ``feature_table`` under autograd) on ``edge_scene``:
+    radius, radius_bin, visible and the rect columns equal; every float
+    column, p_pix and depth within 1e-6 of the plain value (equal so far:
+    both round every operation in the same order), cull_r2 too (its log
+    rounds an ulp or two apart); under a seeded cotangent on the rows of the
+    splats each view sees (what K4 gives) every raw leaf's and the offset's
+    gradient with the same NaNs and within 1e-5 of the leaf's norm; under one on every
+    row the same NaNs and each splat's gradient within 1e-4 of its own
+    scale (``_row_err``); one launch of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    mx, deg, aa, views, block, sm = PREP_CASES[case]
+    scene = edge_scene(PREP_N, mx, deg, seed=10 * mx + deg, device="cuda")
+    cam = edge_cameras(views, "cuda")
+    ct = edge_cotangent(((views,) if views > 1 else ()) + (PREP_N, rasterize.NFEAT), 0, "cuda")
+    counts = dict(_build.launches)
+    pk, tk, gk = _prep_run(preprocess_scene, scene, cam, views, block, aa, sm, ct)
+    torch.cuda.synchronize()
+    assert _build.launches["preprocess_fwd"] == counts["preprocess_fwd"] + 1
+    assert _build.launches["preprocess_bwd"] == counts["preprocess_bwd"] + 1
+    pp_, tp, gp = _prep_run(preprocess_scene_plain, scene, cam, views, block, aa, sm, ct)
+    assert tk.shape == tp.shape and pk.visible.dtype == torch.bool
+    assert int(pp_.visible.sum()) > PREP_N // 3  # the ordinary splats are seen
+    for f in ("radius", "radius_bin", "visible"):
+        assert _nan_equal(getattr(pk, f), getattr(pp_, f)), f
+    assert _nan_equal(tk[..., 10:], tp[..., 10:])
+    for c in range(10):
+        assert _float_err(tk[..., c], tp[..., c]) <= 1e-6, c
+    for f in ("p_pix", "depth", "cull_r2"):
+        assert _float_err(getattr(pk, f), getattr(pp_, f)) <= 1e-6, f
+    for k in gk:
+        assert _row_err(gk[k], gp[k]) <= 1e-4, k
+    seen = ct * pp_.visible[..., None]
+    gk = _prep_run(preprocess_scene, scene, cam, views, block, aa, sm, seen)[2]
+    gp = _prep_run(preprocess_scene_plain, scene, cam, views, block, aa, sm, seen)[2]
+    for k in gk:
+        assert _grad_err(gk[k], gp[k]) <= 1e-5, k
+
+
+def test_preprocess_kernels_without_an_offset_and_under_no_grad(scene):
+    """The render's and the eval step's call: no offset, no autograd."""
+    cam = interop.camera(W, H)
+    with torch.no_grad():
+        pk, tk = preprocess_scene(scene, cam, W, H, 32)
+        pp_, tp = preprocess_scene_plain(scene, cam, W, H, 32)
+    torch.cuda.synchronize()
+    assert tk.grad_fn is None
+    assert torch.equal(pk.visible, pp_.visible) and torch.equal(pk.radius, pp_.radius)
+    for c in range(rasterize.NFEAT):
+        assert _float_err(tk[:, c], tp[:, c]) <= 1e-6, c
+
+
+def test_captured_train_step_runs_the_preprocess_kernels(scene, monkeypatch):
+    """A captured train step on route "cuda" launches each kernel of the
+    pair once a replay and never the composed preprocess or feature table;
+    its first loss is within 1e-5 of the plain route's eager step's."""
+    from gaussian_splatting_lightning_tpu_torch.ops import preprocess as prep_mod
+    from gaussian_splatting_lightning_tpu_torch.training.optimizer import init_adam
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the composed preprocess ran on route cuda")
+
+    cam = interop.camera(W, H)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    target = torch.rand(3, H, W, device="cuda", generator=gen)
+    bg = torch.zeros(3, device="cuda")
+    tiling = TilingConfig(max_pairs=MAX_PAIRS, block=32)
+    plain = trainer.make_train_step(trainer.TrainConfig(rasterizer="plain", tiling=tiling),
+                                    1.0, W, H, capture=False)
+    want = [float(plain(_clone(scene), init_adam(scene.params), 0, cam, target, bg)[2]["loss"])]
+    for name in ("preprocess", "feature_table"):
+        monkeypatch.setattr(rasterize, name, refuse)
+    monkeypatch.setattr(prep_mod, "preprocess_scene_plain", refuse)
+    step = trainer.make_train_step(trainer.TrainConfig(tiling=tiling), 1.0, W, H)
+    state, adam = _clone(scene), init_adam(scene.params)
+    for t in range(3):
+        _build.reset_launch_counts()
+        state, adam, logs = step(state, adam, t, cam, target, bg)[:3]
+        torch.cuda.synchronize()
+        runs = 2 if t == 0 else 1  # the first call warms up, captures and replays
+        assert _build.launches["preprocess_fwd"] == _build.launches["preprocess_bwd"] == runs
+        assert _build.launches["expand_pairs"] == runs
+        if t == 0:
+            assert abs(float(logs["loss"]) - want[0]) <= 1e-5 * abs(want[0])
+    assert step.captured.captures == 1
+
+
+def _clone(scene):
+    return dataclasses.replace(
+        scene, params=GaussianParams(**{k: getattr(scene.params, k).clone()
+                                        for k in PARAM_NAMES}),
+        alive=scene.alive.clone(), max_radii2d=scene.max_radii2d.clone(),
+        grad_accum=scene.grad_accum.clone(), grad_count=scene.grad_count.clone())

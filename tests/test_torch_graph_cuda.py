@@ -9,8 +9,9 @@
   column within 1e-6 of its largest |eager| value after the last step (the
   autograd of gathers and ``index_add_`` add with atomics, so the last bit
   may differ from run to run), the densification counts exact.
-- A replay adds the launches its capture recorded (K1-K4 once, K5 twice a
-  step); a capture launches nothing of its own.
+- A replay adds the launches its capture recorded (K1-K4 and the
+  preprocess pair once, K5 twice a step; the mesh's step no preprocess
+  kernel); a capture launches nothing of its own.
 - A function that reads a value back to the host cannot be captured: the
   capture raises.
 - The ``Trainer`` on the captured step: a NaN loss rolls back to the last
@@ -73,7 +74,10 @@ PKG = "gaussian_splatting_lightning_tpu_torch"
 W, H = 128, 96
 TILING = TilingConfig(max_pairs=1 << 16, block=32)
 STEP_KERNELS = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
-                "segment_sum": 1, "blur": 2}
+                "segment_sum": 1, "blur": 2, "preprocess_fwd": 1, "preprocess_bwd": 1}
+# the mesh's step composes its sharded preprocess: no preprocess kernel
+MESH_STEP_KERNELS = {k: n for k, n in STEP_KERNELS.items() if not k.startswith("preprocess")}
+MESH_LAUNCHES = dict(MESH_STEP_KERNELS, preprocess_fwd=0, preprocess_bwd=0)
 
 
 @pytest.fixture(scope="module")
@@ -315,7 +319,7 @@ def test_captured_mesh_step_equals_eager_on_nccl(scene):
                                                    st["exp"].params[idx])
                 torch.cuda.synchronize()
                 runs = 2 if name == "captured" and t == 0 else 1  # warm-up, then a replay
-                assert dict(_build.launches) == {k: runs * n for k, n in STEP_KERNELS.items()}
+                assert dict(_build.launches) == {k: runs * n for k, n in MESH_LAUNCHES.items()}
                 st["scene"], st["adam"] = scene_t, adam
                 st["loss"].append(float(logs["loss"]))
                 st["exp_grad"].append(exp_grad.clone())
@@ -383,7 +387,7 @@ def four_rank_mismatches(root, tmp_path, shapes):
                 if not np.array_equal(got[key], ranks[0][key]):
                     bad.append((mesh, r, key, "differs from rank 0"))
             names = set(got[f"{mesh}/launch_names"].tolist())
-            if names != set(STEP_KERNELS):
+            if names != set(MESH_STEP_KERNELS):
                 bad.append((mesh, r, "launches", sorted(names)))
     return bad
 

@@ -508,8 +508,9 @@ def rasterize(
     one pass: image (B, 3, H, W), depth (B, 1, H, W), radii (B, N), and
     stats reduced as the JAX batched step reduces them (dropped pairs
     summed, pairs and overflow maxed; the other counts summed or maxed
-    alike), with the per-view ``num_pairs_per_view`` and
-    ``num_dropped_pairs_per_view`` (B,) beside them."""
+    alike; ``num_on_screen`` counts the splats with a pair in any view), with
+    the per-view ``num_pairs_per_view`` and ``num_dropped_pairs_per_view``
+    (B,) beside them."""
     config = config or TilingConfig()
     if prep is None:
         prep = preprocess(
@@ -561,6 +562,8 @@ def rasterize_prepared(prep, gfeat, width, height, background, config=None,
 
     out_h = gy * blk if banded else height
     imgd = _assemble_cf(out, grid_x, gy, width, out_h, blk)  # ([B,] NOUT, H, W)
+    # K1's input: a splat's pairs (its most over the views of a stack)
+    ntiles = bins.ntiles if views is None else torch.amax(bins.ntiles, dim=0)
     stats = {
         "num_pairs": bins.num_pairs,
         "num_dropped_pairs": bins.num_dropped,
@@ -569,6 +572,8 @@ def rasterize_prepared(prep, gfeat, width, height, background, config=None,
         "num_visible": torch.sum(prep.visible.to(torch.int32)),
         # pairs left after the exact per-tile cull (what K2 composites)
         "num_binned_pairs": torch.sum(bins.tile_count),
+        # splats with a pair in any of the views (in the band, when banded)
+        "num_on_screen": torch.count_nonzero(ntiles),
     }
     if views is not None:
         stats.update(num_pairs=torch.max(bins.num_pairs),

@@ -379,10 +379,14 @@ def step_gradients(cfg: TrainConfig, scene: GaussianScene, camera: Camera,
 
 
 def _step_logs(logs: dict, scene: GaussianScene, stats: dict) -> dict:
-    """The step's logs under the JAX step's keys."""
+    """The step's logs under the JAX step's keys, and on the routes that bin
+    by K1's inputs (``cuda``, ``plain``) ``num_on_screen``: the splats with a
+    pair in the step's views."""
     logs = dict(logs, n_gaussians=scene.alive.sum())
     for k in ("num_dropped_pairs", "num_tile_overflow", "num_pairs"):
         logs[k] = stats[k]
+    if "num_on_screen" in stats:
+        logs["num_on_screen"] = stats["num_on_screen"]
     return logs
 
 

@@ -49,7 +49,7 @@ from gaussian_splatting_lightning_tpu_torch.training import trainer
 from torch_expand_layouts import EXPAND_LAYOUTS, GX, GY, expand_case
 from torch_preprocess_cases import cameras as edge_cameras
 from torch_preprocess_cases import cotangent as edge_cotangent
-from torch_preprocess_cases import edge_scene
+from torch_preprocess_cases import edge_scene, inside_camera, inside_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -702,14 +702,18 @@ def test_batched_expand_pairs_on_uneven_runs():
 # ---- the preprocess kernel pair (csrc/preprocess.cu) ----------------------
 
 PREP_N = 5000
-# name: (max SH degree, active degree, antialias, views, tile edge, scale modifier)
+# name: (scene, max SH degree, active degree, antialias, views, tile edge,
+# scale modifier); "edge" is ``edge_scene`` under ``edge_cameras``, "inside"
+# the benchmark's cloud seen from distance 2 (``inside_scene``, degree 3,
+# under ``inside_camera``, one view; the cell ``train-1080p-3m``)
 PREP_CASES = {
-    **{f"deg{d}{'-aa' if aa else ''}": (max(d, 3), d, aa, 1, 32, 1.0)
+    **{f"deg{d}{'-aa' if aa else ''}": ("edge", max(d, 3), d, aa, 1, 32, 1.0)
        for d in range(5) for aa in (False, True)},
-    "views4": (3, 3, False, 4, 32, 1.0),
-    "views4-aa": (3, 3, True, 4, 32, 1.0),
-    "views4-deg0": (3, 0, False, 4, 32, 1.0),
-    "block16-modifier": (3, 3, False, 1, 16, 0.5),
+    "views4": ("edge", 3, 3, False, 4, 32, 1.0),
+    "views4-aa": ("edge", 3, 3, True, 4, 32, 1.0),
+    "views4-deg0": ("edge", 3, 0, False, 4, 32, 1.0),
+    "block16-modifier": ("edge", 3, 3, False, 1, 16, 0.5),
+    "inside-the-cloud": ("inside", 3, 3, False, 1, 32, 1.0),
 }
 
 
@@ -772,8 +776,10 @@ def _row_err(a, b) -> float:
 @pytest.mark.parametrize("case", list(PREP_CASES))
 def test_preprocess_kernels_match_plain(case):
     """The kernel pair against its plain version (the composed activations,
-    ``preprocess`` and ``feature_table`` under autograd) on ``edge_scene``:
-    radius, radius_bin, visible and the rect columns equal; every float
+    ``preprocess`` and ``feature_table`` under autograd) on ``edge_scene``,
+    and on the benchmark's cloud from inside it with rows in the near band,
+    behind the camera and off screen beside those on screen: radius,
+    radius_bin, visible and the rect columns equal; every float
     column, p_pix and depth within 1e-6 of the plain value (equal so far:
     both round every operation in the same order), cull_r2 too (its log
     rounds an ulp or two apart); under a seeded cotangent on the rows of the
@@ -783,9 +789,12 @@ def test_preprocess_kernels_match_plain(case):
     scale (``_row_err``); one launch of each kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    mx, deg, aa, views, block, sm = PREP_CASES[case]
-    scene = edge_scene(PREP_N, mx, deg, seed=10 * mx + deg, device="cuda")
-    cam = edge_cameras(views, "cuda")
+    kind, mx, deg, aa, views, block, sm = PREP_CASES[case]
+    if kind == "inside":
+        scene, cam = inside_scene(PREP_N, seed=3, device="cuda"), inside_camera("cuda")
+    else:
+        scene = edge_scene(PREP_N, mx, deg, seed=10 * mx + deg, device="cuda")
+        cam = edge_cameras(views, "cuda")
     ct = edge_cotangent(((views,) if views > 1 else ()) + (PREP_N, rasterize.NFEAT), 0, "cuda")
     counts = dict(_build.launches)
     pk, tk, gk = _prep_run(preprocess_scene, scene, cam, views, block, aa, sm, ct)
@@ -795,6 +804,11 @@ def test_preprocess_kernels_match_plain(case):
     pp_, tp, gp = _prep_run(preprocess_scene_plain, scene, cam, views, block, aa, sm, ct)
     assert tk.shape == tp.shape and pk.visible.dtype == torch.bool
     assert int(pp_.visible.sum()) > PREP_N // 3  # the ordinary splats are seen
+    if kind == "inside":  # the rows this scene is for
+        z, r, (x, y) = pp_.depth, pp_.radius, pp_.p_pix.unbind(-1)
+        off = pp_.visible & ((x + r < 0) | (x - r >= W) | (y + r < 0) | (y - r >= H))
+        assert int((z <= 0).sum()) > 0 and int(((z > 0) & (z <= 0.2)).sum()) > 0
+        assert int(off.sum()) > 0 and int((pp_.visible & ~off).sum()) > 0
     for f in ("radius", "radius_bin", "visible"):
         assert _nan_equal(getattr(pk, f), getattr(pp_, f)), f
     assert _nan_equal(tk[..., 10:], tp[..., 10:])

@@ -143,7 +143,8 @@ def test_donating_step_matches_out_of_place_and_jax(case):
             st["scene"], st["adam"], logs[side] = res[:3]
             if exposure:
                 st["exp"] = texposure.exposure_update(st["exp"], ti, res[3], 0.001)
-        assert set(logs["in"]) == set(logs["out"]) == set(jlogs)
+        assert set(logs["in"]) == set(logs["out"]) == set(jlogs) | {"num_on_screen"}
+        assert torch.equal(logs["in"]["num_on_screen"], logs["out"]["num_on_screen"])
         for k in jlogs:
             assert torch.equal(logs["in"][k], logs["out"][k]), (step, k)
         assert int(logs["in"]["num_dropped_pairs"]) == int(jlogs["num_dropped_pairs"]) == 0

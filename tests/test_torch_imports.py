@@ -21,7 +21,7 @@ FILES = sorted((ROOT / PORT).rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda_kernels.py",
     ROOT / "tests" / "test_torch_graph_cuda.py",
     ROOT / "tests" / "torch_expand_layouts.py", ROOT / "tests" / "torch_mesh_worker.py",
-    ROOT / "tests" / "torch_preprocess_cases.py",
+    ROOT / "tests" / "torch_preprocess_cases.py", ROOT / "tests" / "test_torch_partial_views.py",
     ROOT / "tests" / "torch_nccl_worker.py", ROOT / "tests" / "torch_dryrun_worker.py"]
 
 

@@ -218,7 +218,8 @@ def coupled_steps(block, depth_and_exposure):
         else:
             js, jadam, jlogs = jstep(js, jadam, step, jc, jnp.asarray(img), jbg)
             ts, tadam, tlogs = tstep(ts, tadam, step, tc, torch.from_numpy(img), tbg)
-        assert set(tlogs) == set(jlogs)
+        assert set(tlogs) == set(jlogs) | {"num_on_screen"}
+        assert 0 < int(tlogs["num_on_screen"]) <= int(tlogs["n_gaussians"])
         assert int(tlogs["num_dropped_pairs"]) == int(jlogs["num_dropped_pairs"]) == 0
         assert int(tlogs["num_pairs"]) == int(jlogs["num_pairs"])
         losses.append((float(jlogs["loss"]), float(tlogs["loss"])))

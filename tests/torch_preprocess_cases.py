@@ -6,6 +6,7 @@
 the camera, exactly on the camera plane (the ``|z| > 1e-12`` nudge), far
 outside the ``1.3 tan`` limit (the clip), with colours under the
 ``clamp_min`` and in dead ``alive`` slots, and unnormalised quaternions.
+``inside_scene`` is the benchmark's cloud seen from inside (``inside_camera``).
 """
 
 import numpy as np
@@ -42,6 +43,36 @@ def edge_scene(n: int, max_degree: int, degree: int, seed: int = 0, device="cpu"
     alive = np.arange(n) % 7 != 6
     return scene_from_arrays(xyz, dc, rest, opacity, scales, quats, alive, degree,
                              device=device)
+
+
+def inside_scene(n: int, seed: int = 0, device="cpu"):
+    """``n`` splats of the benchmark's cloud (means from a unit normal,
+    scales log-uniform in 0.3x-3x of 0.008, opacity logits in [-2, 3], SH
+    degree 3) for ``inside_camera``: about half lie on screen, some in the
+    near band (0 < z <= 0.2) and some behind the camera."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.normal(size=(n, 3)).astype(np.float32)
+    dc = ((rng.uniform(0.1, 0.9, (n, 1, 3)) - 0.5) / 0.28209479177387814).astype(np.float32)
+    rest = (rng.normal(size=(n, 15, 3)) * 0.2).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    scales = rng.uniform(np.log(0.0024), np.log(0.024), (n, 3)).astype(np.float32)
+    opacity = rng.uniform(-2.0, 3.0, (n, 1)).astype(np.float32)
+    return scene_from_arrays(xyz, dc, rest, opacity, scales, quats, np.ones(n, bool), 3,
+                             device=device)
+
+
+def inside_camera(device="cpu"):
+    """A camera 2 units from the origin looking at it, inside the 2-sigma
+    shell of ``inside_scene``'s cloud (the benchmark's cell from inside)."""
+    eye = np.array([0.6, -0.5, -1.8])
+    eye *= 2.0 / np.linalg.norm(eye)
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(fwd, [0.0, -1.0, 0.0])
+    right /= np.linalg.norm(right)
+    rot = np.stack([right, np.cross(fwd, right), fwd])
+    return make_camera(np.concatenate([rot, -rot @ eye[:, None]], 1), 0.7 * W, 0.7 * W, W, H,
+                       device=device)
 
 
 def camera(i: int = 0, device="cpu"):

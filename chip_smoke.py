@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100, and of its mesh
 on four.
 
-Run from the repository root with no arguments (one card: phases 1-10
-and 12):
+Run from the repository root with no arguments (one card: phases 1-10,
+12 and 13):
 
     python3 chip_smoke.py
 
@@ -35,9 +35,8 @@ Phases (any failure exits non-zero):
      at 1920x1080 trains for TRAIN_STEPS + 1 steps of ``make_train_step``
      under the same budget, eager (``capture=False``) and captured from the
      same start (a ``train_step:`` line each: loss finite, 0 dropped pairs,
-     the preprocess pair and K1-K4 launched once and K5 twice per step,
-     every parameter group
-     moved; ``step_graph_check``: each captured loss within STEP_GRAPH_TOL
+     the preprocess pair, K1-K4 and Adam launched once and K5 twice per
+     step, every parameter group moved; ``step_graph_check``: each captured loss within STEP_GRAPH_TOL
      of the eager one, each parameter and moment column after the last step
      within STEP_GRAPH_TOL of its largest |eager|). Then K3, K4 and K5 are
      held against their plain versions (K3 and K4 also against their own
@@ -95,27 +94,28 @@ Phases (any failure exits non-zero):
      and budget at 1920x1080 on the bench camera and phase 3's three orbit
      views, the first B of them for B in 1, 2, 4, BATCH_STEPS steps each (a
      ``train_step_batched:`` line each: host wall, CUDA-event time, ms per
-     view, launches per step from ``torch.profiler``, K1-K4 once and K5
-     twice per step, 0 dropped pairs, peak memory). For each B the batched
-     K1 and bins are identical to the plain version's per view, K2, K3 the
+     view, launches per step from ``torch.profiler``, K1-K4 and Adam once
+     and K5 twice per step, 0 dropped pairs, peak memory). For each B the
+     batched K1 and bins are identical to the plain version's per view, K2, K3 the
      bits of the single-view launches on each view and K4 within 1e-5 of
      its plain version at 1080p; K2 within 1e-4 and K3 within 1e-4 of their
      plain versions at 256x192 with 20k splats. The B = 4 step's gradients
      on route "cuda" are held to the mean of the four single-view steps'
      (1e-4 of each column's maximum), its screen-space gradients to the
-     stacked single-view ones. Launches per step at B = 4 stay within 1.3x
-     of B = 1's. A ``phase8:`` line holds the numbers. The timed steps are
-     replays of the captured step; the eager step is timed beside them.
+     stacked single-view ones. Launches per step at B = 4 exceed B = 1's
+     by at most BATCH_LAUNCH_GROWTH. A ``phase8:`` line holds the numbers.
+     The timed steps are replays of the captured step; the eager step is
+     timed beside them.
   9. the mesh (``parallel/``) at full width. (a) A 1x1 mesh on NCCL in this
      process: the captured sharded step (what ``Trainer(mesh=…)`` runs), the
      eager one (``capture=False``) and the captured one-process step,
      TRAIN_STEPS + 1 steps each from the same start on phase 5's bench view:
      the captured mesh step equal to the eager one bit for bit (every loss,
      the parameters, moments and statistics after the last step), one
-     capture, K1-K4 once and K5 twice a replay, and within the mesh limits
-     of the one-process step (first loss within 1e-5, Adam's first moments
-     after step 0, (1 - beta1) times the gradients, within 1e-4 of each
-     column's largest |value|); each step timed (``mesh_1x1:``), then a
+     capture, K1-K4 and Adam once and K5 twice a replay, and within the
+     mesh limits of the one-process step (first loss within 1e-5, Adam's
+     first moments after step 0, (1 - beta1) times the gradients, within
+     1e-4 of each column's largest |value|); each step timed (``mesh_1x1:``), then a
      ``graph:`` line of the captured mesh step against the eager one. (b)
      Four ranks sharing the card over gloo under
      ``torch.distributed.run`` (this script with ``--mesh-ranks``), meshes
@@ -176,9 +176,9 @@ Phases (any failure exits non-zero):
      steps captured and as many with ``capture=False`` from the same start:
      equal bit for bit on every rank (losses, parameters, the rank's ZeRO-1
      Adam rows, statistics), the same scene on every rank, one capture,
-     K1-K4 once and K5 twice a replay, the first loss within 1e-5 and the
-     gradients within 1e-4 of the one-process step on the same four views,
-     0 pairs dropped; bands 1 and 3 of (1, 4) hold every K1-K5 call to its
+     K1-K4 and Adam once and K5 twice a replay, the first loss within 1e-5
+     and the gradients within 1e-4 of the one-process step on the same four
+     views, 0 pairs dropped; bands 1 and 3 of (1, 4) hold every K1-K5 call to its
      plain version (``BAND_TOL``); per rank the wall per step (synced; each
      step the slowest rank's), CUDA-event ms, device busy and idle share
      (NCCL's kernel time apart: it overlaps the compute), capture seconds
@@ -216,6 +216,15 @@ Phases (any failure exits non-zero):
      cotangent) bit-identical to the plain version, each timed by CUDA
      events beside its byte bound; ``ssim`` at window 7 on the card equal to
      the plain version. A ``phase12:`` line holds the numbers.
+  13. (after phase 12) Adam's kernel (``csrc/adam.cu``) alone at 1M and 3M
+     splats, SH degree 3, dense: one in-place update from a seeded state
+     against ``_adam_plain`` from the same state (every bit of p, m and v
+     equal, one launch), then CUDA-event ms of the kernel, of the plain
+     version's 84 launches and of ``torch.optim.Adam(fused=True)`` over the
+     same six tensors (``library_ms``: a yardstick the port never calls),
+     beside the byte bound (7 floats of 4 bytes a parameter, 1,652 B a
+     splat). A ``phase13:`` line holds the numbers; the kernels' record
+     gets an ``adam`` row with them (at 3M, and per size under ``sizes``).
 
 Phases 3, 5, 8 and 10 print a ``graph:`` line: the capture's seconds, and
 for the captured and the eager path each the host wall and CUDA-event ms a
@@ -1063,7 +1072,7 @@ def phase5(scene, budget):
     bg = torch.zeros(3, device="cuda")
     tiling = TilingConfig(max_pairs=budget, block=blk)
     cfg = trainer.TrainConfig(tiling=tiling)
-    expected = dict(BENCH_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
+    expected = dict(TRAIN_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
     start = {k: getattr(scene.params, k).clone() for k in PARAM_NAMES}
     # TRAIN_STEPS + 1 steps eager and captured from the same start: step 0
     # warms up (captured: warm-up, capture, replay), the rest are timed
@@ -1542,6 +1551,89 @@ class Tee(io.TextIOBase):
 
     def flush(self):
         sys.__stdout__.flush()
+
+
+# phase 13: Adam's kernel (csrc/adam.cu) alone at the benchmark cells' store
+# sizes, SH degree 3; its byte bound reads p, g, m, v and writes p, m, v once
+ADAM_ROWS = (1_000_000, 3_000_000)
+ADAM_BYTES_PER_SPLAT = 7 * 59 * 4
+
+
+def phase13() -> dict:
+    """Adam's kernel at each of ``ADAM_ROWS``: one in-place update against
+    ``_adam_plain`` from the same state (every bit of p, m and v), then
+    CUDA-event ms of the kernel, of the plain version's 84 launches and of
+    ``torch.optim.Adam(fused=True)`` over the same six tensors (the library
+    yardstick only: the port never calls it), beside the byte bound.
+    Prints a ``phase13:`` line and returns the kernel's row."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
+        PARAM_NAMES,
+        GaussianParams,
+    )
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.training import optimizer as opt
+
+    cfg = opt.OptimizerConfig()
+    sched = opt.make_lr_schedules(cfg, 1.0)
+    values = opt.adam_scalars(sched, cfg, 15001, 15001)
+    sizes, bad = {}, {}
+    for rows in ADAM_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(rows)
+        shapes = {"xyz": (rows, 3), "features_dc": (rows, 1, 3),
+                  "features_rest": (rows, 15, 3), "opacity": (rows, 1), "scales": (rows, 3),
+                  "quats": (rows, 4)}
+
+        def rand(scale, shapes=shapes, gen=gen):
+            return GaussianParams(**{k: torch.randn(s, generator=gen, device="cuda") * scale
+                                     for k, s in shapes.items()})
+
+        def copy(x):
+            return GaussianParams(**{k: getattr(x, k).clone() for k in PARAM_NAMES})
+
+        params, grads, mu = rand(1.0), rand(1e-2), rand(1e-3)
+        nu = GaussianParams(**{k: v ** 2 for k, v in vars(rand(1e-3)).items()})
+        state = opt.AdamState(count=15000, mu=mu, nu=nu)
+        scalars = opt.scalars_tensor(values, "cuda")
+        got_p, got = copy(params), opt.AdamState(count=15000, mu=copy(mu), nu=copy(nu))
+        before = _build.launches["adam"]
+        opt.adam_update_(got_p, grads, got, scalars, cfg)
+        launched = _build.launches["adam"] - before
+        want = opt._adam_plain(params, grads, state, scalars, cfg, None, None)
+        torch.cuda.synchronize()
+        differ = {f"{part}.{k}": int((getattr(a, k).view(torch.int32)
+                                      != getattr(b, k).view(torch.int32)).sum())
+                  for part, a, b in zip("pmv", (got_p, got.mu, got.nu), want)
+                  for k in PARAM_NAMES}
+        del got_p, got, want
+        ms = cuda_time_ms(lambda: opt.adam_update_(params, grads, state, scalars, cfg), 20)
+        plain_ms = cuda_time_ms(lambda: opt._adam_plain(params, grads, state, scalars, cfg,
+                                                        None, (params, state)), 5)
+        leaves = [getattr(params, k).detach().clone().requires_grad_() for k in PARAM_NAMES]
+        for leaf, k in zip(leaves, PARAM_NAMES):
+            leaf.grad = getattr(grads, k).clone()
+        library = torch.optim.Adam([{"params": [leaf], "lr": lr}
+                                    for leaf, lr in zip(leaves, values)],
+                                   betas=(cfg.beta1, cfg.beta2), eps=cfg.eps, fused=True)
+        library_ms = cuda_time_ms(library.step, 20)
+        bound_ms = rows * ADAM_BYTES_PER_SPLAT / HBM_BYTES_PER_S * 1e3
+        sizes[str(rows)] = {"ms": ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                            "plain_ms": plain_ms, "library_ms": library_ms,
+                            "launches": launched, "bits_differ": sum(differ.values())}
+        if launched != 1 or any(differ.values()):
+            bad[rows] = {"launches": launched, "differ": {k: n for k, n in differ.items() if n}}
+        del params, grads, mu, nu, state, leaves, library
+        torch.cuda.empty_cache()
+    print("phase13: " + json.dumps(sizes), flush=True)
+    if bad:
+        fail(f"phase 13: Adam's kernel against its plain version: {bad}")
+    top = sizes[str(ADAM_ROWS[-1])]
+    return {"name": "adam", "route": "cuda", "source": f"{PKG}/csrc/adam.cu",
+            "replaces": "none (the JAX package's adam_update is jnp that XLA fuses)",
+            "launches": top["launches"], "max_abs_err": 0.0, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"], "sizes": sizes}
 
 
 def write_loop_scene(root, w, h):
@@ -2304,7 +2396,10 @@ def phase7(work: Path, run_dir: Path, scene_dir: Path, loop_psnr: float, bench_p
 # phase 8: the view-batched step at full width (the bench scene at 1080p)
 BATCH_SIZES = (1, 2, 4)
 BATCH_STEPS = 10
-BATCH_LAUNCH_RATIO = 1.3  # launches per step at B = 4 over B = 1, at most
+# launches per step at B = 4 less those at B = 1, at most: K1-K5, the
+# preprocess pair and Adam launch once a step at any B, so only the per-view
+# PyTorch work adds launches (+92 on the card with Adam's kernel)
+BATCH_LAUNCH_GROWTH = 100
 
 
 def _prep_views(scene, cams, w, h):
@@ -2443,7 +2538,7 @@ def phase8(scene, budget):
         size=(len(cams), 3, h, w)).astype(np.float32)).cuda()
     tiling = TilingConfig(max_pairs=budget, block=blk)
     m = -(-budget // 128) * 128
-    expected = dict(BENCH_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
+    expected = dict(TRAIN_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
     rows, launches, by_kernel, graphs = {}, {}, {}, {}
     for b in BATCH_SIZES:
         cfg = trainer.TrainConfig(tiling=tiling, batch_views=b)
@@ -2535,8 +2630,9 @@ def phase8(scene, budget):
         by_kernel[b] = prof["launches_by_kernel"]
         torch.cuda.empty_cache()
     ratio = rows[4]["launches_per_step"] / rows[1]["launches_per_step"]
-    if not ratio <= BATCH_LAUNCH_RATIO:
-        fail(f"phase 8: launches per step at B = 4 are {ratio:.3f}x those at B = 1")
+    growth = rows[4]["launches_per_step"] - rows[1]["launches_per_step"]
+    if not growth <= BATCH_LAUNCH_GROWTH:
+        fail(f"phase 8: launches per step at B = 4 are {growth} more than at B = 1")
     grad_err = check_batched_gradients(scene, cams, w, h, tiling)
     # which kernels the four views launch more (or less) often than one
     names = set(by_kernel[1]) | set(by_kernel[4])
@@ -2547,7 +2643,8 @@ def phase8(scene, budget):
         "ms_per_view_wall": {b: r["wall_ms_per_view"] for b, r in rows.items()},
         "ms_per_view_events": {b: r["event_ms_per_view"] for b, r in rows.items()},
         "launches_per_step": {b: r["launches_per_step"] for b, r in rows.items()},
-        "launch_ratio_4_to_1": ratio, "launch_diff_4_vs_1": launch_diff,
+        "launch_ratio_4_to_1": ratio, "launch_growth_4_over_1": growth,
+        "launch_diff_4_vs_1": launch_diff,
         "peak_mem_bytes": {b: r["peak_mem_bytes"] for b, r in rows.items()},
         "grad_rel_err_b4_vs_single_mean": grad_err, "phase_s": time.perf_counter() - t_phase,
     }
@@ -2733,7 +2830,7 @@ def phase9_nccl(scene, budget):
     if not all(row["captured_vs_eager_bits_equal"].values()):
         fail(f"phase 9 (a): the captured mesh step differs from the eager one: "
              f"{row['captured_vs_eager_bits_equal']}")
-    want = {k: TRAIN_STEPS * n for k, n in BENCH_STEP_LAUNCHES.items()}
+    want = {k: TRAIN_STEPS * n for k, n in TRAIN_STEP_LAUNCHES.items()}
     if launched_kernels(launches) != want or row["captures"] != 1:
         fail(f"phase 9 (a): {TRAIN_STEPS} replays launched {launches} (want {want}), "
              f"{row['captures']} captures")
@@ -3207,6 +3304,8 @@ def phase9_cli_nccl(work: Path, scene_dir: Path, loop_run: Path):
 BENCH_BUDGET = 2_138_112  # BENCH_PAIRS + 2%, rounded up to 8192: the bench's budget
 BENCH_STEP_LAUNCHES = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
                        "segment_sum": 1, "blur": 2}
+# a train step, one process or the mesh's, also updates with Adam's kernel
+TRAIN_STEP_LAUNCHES = dict(BENCH_STEP_LAUNCHES, adam=1)
 BATCHED_VIEWS = [1, 2, 4, 8]
 # the entry points' work recorded in this process, in the CLIs' shapes: the
 # bench's two rungs, its parity rung (an L1 loss: no K5) and banded check
@@ -3689,7 +3788,7 @@ def phase11_steps(work: Path) -> dict:
         rows = [dict(r[shape], rank=r["rank"]) for r in ranks]
         for r in rows:
             print(f"mesh4_rank {shape}: " + json.dumps(r), flush=True)
-        want = {k: TRAIN_STEPS * n for k, n in BENCH_STEP_LAUNCHES.items()}
+        want = {k: TRAIN_STEPS * n for k, n in TRAIN_STEP_LAUNCHES.items()}
         bad = {r["rank"]: r for r in rows if not (
             all(r["captured_vs_eager_bits_equal"].values()) and r["scene_digests_equal"]
             and r["captures"] == 1 and r["graph"]["captured"]["kernel_launches"] == want
@@ -4045,6 +4144,7 @@ def main() -> int:
         bare_step_syncs, step_kernels = timed("5", phase5, scene, budget)
         kernels += step_kernels
         blur_windows = timed("12", phase12, scene, budget)
+        kernels.append(timed("13", phase13))
         batched_launches = timed("8", phase8, scene, budget)
         mesh_launches = {"1x1": timed("9a", phase9_nccl, scene, budget)}
         del scene
@@ -4062,14 +4162,15 @@ def main() -> int:
           f"python3 chip_smoke.py --cards {MESH4_CARDS} on a {MESH4_CARDS}-card machine",
           flush=True)
     for row in kernels:
-        row["loop_launches"] = loop_launches[row["name"]]
-        row["serve_launches"] = {cli: n[row["name"]] for cli, n in serve_launches.items()}
-        row["batched_launches"] = {str(b): n[row["name"]] for b, n in batched_launches.items()}
+        name = row["name"]
+        row["loop_launches"] = loop_launches.get(name, 0)
+        row["serve_launches"] = {cli: n.get(name, 0) for cli, n in serve_launches.items()}
+        row["batched_launches"] = {str(b): n.get(name, 0) for b, n in batched_launches.items()}
         row["mesh_launches"] = {
-            shape: (n[row["name"]] if isinstance(n, dict) else [r[row["name"]] for r in n])
+            shape: (n.get(name, 0) if isinstance(n, dict) else [r.get(name, 0) for r in n])
             for shape, n in mesh_launches.items()}
         row["mesh_band_err"] = band_errs.get(row["name"])
-        row["bench_launches"] = bench_launches[row["name"]]
+        row["bench_launches"] = bench_launches.get(name, 0)
         row["bench_err"] = bench_errs.get(row["name"])
         if row["name"] == "blur":
             row["windows"] = blur_windows

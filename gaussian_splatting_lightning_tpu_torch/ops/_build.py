@@ -39,6 +39,7 @@ SOURCES = {
     "blur": "blur.cu",
     "preprocess_fwd": "preprocess.cu",
     "preprocess_bwd": "preprocess.cu",
+    "adam": "adam.cu",
 }
 # libraries built and loaded like the kernels, but not counted in ``launches``
 LIBRARIES = dict(SOURCES, span_mark="span_mark.cu")
@@ -46,12 +47,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# K1's and the preprocess pair's whole arithmetic must round like the plain
-# versions' separate PyTorch ops; K2, K3 and K5 round what must match
+# K1's, the preprocess pair's and Adam's whole arithmetic must round like the
+# plain versions' separate PyTorch ops; K2, K3 and K5 round what must match
 # explicitly (__fmul_rn & co.) and let the rest contract to FMA; K4 only adds
 EXTRA_FLAGS = {"expand_pairs": ("--fmad=false",), "composite_fwd": (),
                "composite_bwd": (), "segment_sum": (), "blur": (), "span_mark": (),
-               "preprocess_fwd": ("--fmad=false",), "preprocess_bwd": ("--fmad=false",)}
+               "preprocess_fwd": ("--fmad=false",), "preprocess_bwd": ("--fmad=false",),
+               "adam": ("--fmad=false",)}
 
 
 def nvcc_flags(name: str) -> tuple:
@@ -69,6 +71,7 @@ ENTRIES = {
     "span_mark": ("gs_span_mark", [_I, _VP]),
     "preprocess_fwd": ("gs_preprocess_fwd", [_VP] * 20 + [_I] * 10 + [_F] * 2 + [_VP]),
     "preprocess_bwd": ("gs_preprocess_bwd", [_VP] * 20 + [_I] * 7 + [_F] + [_VP]),
+    "adam": ("gs_adam_update", [_VP, _I, _VP, _I, _VP] + [_F] * 5 + [_VP]),
 }
 
 launches = {name: 0 for name in SOURCES}

@@ -7,7 +7,10 @@ operation for operation:
 m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2,
 p -= lr (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps), with b1^t taken in
 float32 and the reference's eps = 1e-15. It is not ``torch.optim.Adam``,
-which orders these operations differently and has no visibility mask.
+which orders these operations differently and has no visibility mask. On
+CUDA tensors the update of all six groups is one kernel (``ops/adam.py``,
+``csrc/adam.cu``) that gives these operations' bits; on the CPU it is the
+operations themselves (``_adam_plain``).
 The learning rate of xyz follows the warmup-exp-decay schedule scaled by the
 scene's spatial extent; the other five groups are constant. The rates and
 the bias corrections reach the update as one small device tensor
@@ -26,6 +29,7 @@ from gaussian_splatting_lightning_tpu_torch.models.gaussians import (
     PARAM_NAMES,
     GaussianParams,
 )
+from gaussian_splatting_lightning_tpu_torch.ops import adam as adam_kernel
 from gaussian_splatting_lightning_tpu_torch.training.schedule import (
     constant_schedule,
     warmup_exp_decay_schedule,
@@ -111,8 +115,30 @@ def scalars_tensor(values, device) -> torch.Tensor:
 
 def _adam(params, grads, state, scalars, cfg, visible, out):
     """The update of every group, ``out`` None (new tensors) or
-    (params, state) to write into: the same operations either way, so the
-    two give the same bits. A sparse update writes its masked results."""
+    (params, state) to write into. CUDA tensors take one launch of
+    ``ops/adam.py``'s kernel, which raises on what it does not take; other
+    devices take ``_adam_plain``. Returns (params, mu, nu)."""
+    if params.xyz.device.type != "cuda":
+        return _adam_plain(params, grads, state, scalars, cfg, visible, out)
+    if out is None:
+        def fresh(x):
+            return GaussianParams(**{k: torch.empty_like(getattr(x, k)) for k in PARAM_NAMES})
+
+        out = (fresh(params), AdamState(count=state.count, mu=fresh(state.mu),
+                                        nu=fresh(state.nu)))
+    groups = [tuple(getattr(x, name) for x in (params, grads, state.mu, state.nu, out[0],
+                                               out[1].mu, out[1].nu))
+              for name in PARAM_NAMES]
+    adam_kernel.adam_update_kernel(groups, scalars, visible, cfg.beta1, cfg.beta2, cfg.eps)
+    return out[0], out[1].mu, out[1].nu
+
+
+def _adam_plain(params, grads, state, scalars, cfg, visible, out):
+    """``_adam``'s plain version, the JAX update operation for operation:
+    ``out`` None (new tensors) or (params, state) to write into, the same
+    operations either way, so the two give the same bits. A sparse update
+    writes its masked results. The kernel rounds where these operations
+    round on the card, so it gives their bits too."""
     b1, b2 = cfg.beta1, cfg.beta2
     bc1, bc2 = scalars[len(PARAM_NAMES)], scalars[len(PARAM_NAMES) + 1]
     dense = visible is None

@@ -15,7 +15,12 @@ activations, ``preprocess`` and ``feature_table`` under autograd: integer
 and boolean fields equal, float columns within 1e-6 relatively (both round
 every operation in the same order), gradients within 1e-5 of each splat's
 scale (the backward sums in another order); a captured train step runs
-the pair once a replay and never the composition. These tests need an NVIDIA
+the pair once a replay and never the composition. Adam's kernel
+(``csrc/adam.cu``) against ``_adam_plain`` on the card: the same bits of
+every parameter and moment, in place and out of place, dense and sparse, at
+1,001 and at 1M rows (ragged tails) at SH degree 3 and 0, with one gradient
+a group and with the mesh's column slices of one (rows, 59) table, and over
+two replays of a captured graph with different scalars. These tests need an NVIDIA
 GPU and ``nvcc``; elsewhere they skip with a reason. On the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -43,9 +48,11 @@ from gaussian_splatting_lightning_tpu_torch.ops.preprocess import (
     preprocess_scene,
     preprocess_scene_plain,
 )
-from gaussian_splatting_lightning_tpu_torch.training import trainer
+from gaussian_splatting_lightning_tpu_torch.ops.adam import adam_groups
+from gaussian_splatting_lightning_tpu_torch.training import optimizer, trainer
 # pytest puts tests/ on sys.path; a package named "tests" elsewhere on the
 # path may shadow this directory's as a package
+from torch_adam_cases import adam_case, bits_differ, clone_state
 from torch_expand_layouts import EXPAND_LAYOUTS, GX, GY, expand_case
 from torch_preprocess_cases import cameras as edge_cameras
 from torch_preprocess_cases import cotangent as edge_cotangent
@@ -879,3 +886,79 @@ def _clone(scene):
                                         for k in PARAM_NAMES}),
         alive=scene.alive.clone(), max_radii2d=scene.max_radii2d.clone(),
         grad_accum=scene.grad_accum.clone(), grad_count=scene.grad_count.clone())
+
+
+ADAM_SIZES = {"1001_sh3": (1001, 3), "1001_sh0": (1001, 0), "1m_sh3": (1 << 20, 3)}
+
+
+def _adam_scalars(count):
+    cfg = optimizer.OptimizerConfig()
+    sched = optimizer.make_lr_schedules(cfg, 2.3)
+    return optimizer.scalars_tensor(optimizer.adam_scalars(sched, cfg, 15000 + count, count),
+                                    "cuda")
+
+
+def _adam_bits_differ(got, want):
+    return {f"{i}/{k}": n for i, (a, b) in enumerate(zip(got, want)) for k in PARAM_NAMES
+            if (n := bits_differ(getattr(a, k), getattr(b, k)))}
+
+
+@pytest.mark.parametrize("size", list(ADAM_SIZES))
+@pytest.mark.parametrize("grads", ["contiguous", "strided"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("in_place", [False, True], ids=["out_of_place", "in_place"])
+def test_adam_kernel_is_bit_identical_to_plain(size, grads, sparse, in_place):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rows, degree = ADAM_SIZES[size]
+    params, g, state, visible = adam_case(rows, degree, grads, "cuda", seed=rows + degree)
+    visible = visible if sparse else None
+    cfg = optimizer.OptimizerConfig()
+    table = adam_groups([tuple(getattr(x, k) for x in (params, g, state.mu, state.nu, params,
+                                                       state.mu, state.nu))
+                         for k in PARAM_NAMES])
+    # an empty group (features_rest at degree 0) launches no block on either path
+    paths = [d.path for d in table if d.rows * d.width]
+    assert paths == ["vec4" if grads == "contiguous" else "scalar"] * len(paths)
+    for count in (1, 15001):  # bias corrections far from 1 and near it
+        scalars = _adam_scalars(count)
+        want = optimizer._adam_plain(params, g, state, scalars, cfg, visible, None)
+        kept = clone_state(params, state)
+        before = _build.launches["adam"]
+        if in_place:
+            p, st = clone_state(params, state)
+            optimizer._adam(p, g, st, scalars, cfg, visible, (p, st))
+            got = (p, st.mu, st.nu)
+        else:
+            got = optimizer._adam(params, g, state, scalars, cfg, visible, None)
+        torch.cuda.synchronize()
+        assert _build.launches["adam"] == before + 1
+        assert not _adam_bits_differ(got, want)
+        # out of place leaves the inputs as they were
+        assert not _adam_bits_differ((params, state.mu, state.nu),
+                                     (kept[0], kept[1].mu, kept[1].nu))
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_adam_kernel_replays_each_steps_scalars_in_a_captured_graph(sparse):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    params, g, state, visible = adam_case(1001, 3, "contiguous", "cuda", seed=9)
+    visible = visible if sparse else None
+    cfg = optimizer.OptimizerConfig()
+    ref = clone_state(params, state)
+    scalars = _adam_scalars(1)
+    warm = clone_state(params, state)  # loads the library before the capture
+    optimizer.adam_update_(warm[0], g, warm[1], scalars, cfg, visible)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        optimizer.adam_update_(params, g, state, scalars, cfg, visible)
+    for count in (2, 15001):
+        new = _adam_scalars(count)
+        scalars.copy_(new)
+        graph.replay()
+        optimizer._adam_plain(ref[0], g, ref[1], new, cfg, visible, ref)
+        torch.cuda.synchronize()
+        assert not _adam_bits_differ((params, state.mu, state.nu),
+                                     (ref[0], ref[1].mu, ref[1].nu)), count

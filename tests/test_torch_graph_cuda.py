@@ -9,9 +9,9 @@
   column within 1e-6 of its largest |eager| value after the last step (the
   autograd of gathers and ``index_add_`` add with atomics, so the last bit
   may differ from run to run), the densification counts exact.
-- A replay adds the launches its capture recorded (K1-K4 and the
-  preprocess pair once, K5 twice a step; the mesh's step no preprocess
-  kernel); a capture launches nothing of its own.
+- A replay adds the launches its capture recorded (K1-K4, the
+  preprocess pair and Adam once, K5 twice a step; the mesh's step no
+  preprocess kernel); a capture launches nothing of its own.
 - A function that reads a value back to the host cannot be captured: the
   capture raises.
 - The ``Trainer`` on the captured step: a NaN loss rolls back to the last
@@ -19,8 +19,8 @@
   uninterrupted run's losses within 1e-6.
 - The sharded step on a 1x1 NCCL mesh in this process (two views a step,
   exposure, ZeRO-1 Adam) captured and replayed for 5 steps against 5 eager
-  steps (``capture=False``) from the same start: one capture, K1-K4 once
-  and K5 twice a replay, every loss, parameter and moment the same bits.
+  steps (``capture=False``) from the same start: one capture, K1-K4 and
+  Adam once and K5 twice a replay, every loss, parameter and moment the same bits.
 - With four cards: the sharded step on four NCCL ranks (one per card,
   ``tests/torch_nccl_worker.py`` under torchrun), meshes (1, 4) and (2, 2),
   and (4, 1) on its own, captured against eager for 5 steps: one capture a
@@ -74,7 +74,8 @@ PKG = "gaussian_splatting_lightning_tpu_torch"
 W, H = 128, 96
 TILING = TilingConfig(max_pairs=1 << 16, block=32)
 STEP_KERNELS = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
-                "segment_sum": 1, "blur": 2, "preprocess_fwd": 1, "preprocess_bwd": 1}
+                "segment_sum": 1, "blur": 2, "preprocess_fwd": 1, "preprocess_bwd": 1,
+                "adam": 1}
 # the mesh's step composes its sharded preprocess: no preprocess kernel
 MESH_STEP_KERNELS = {k: n for k, n in STEP_KERNELS.items() if not k.startswith("preprocess")}
 MESH_LAUNCHES = dict(MESH_STEP_KERNELS, preprocess_fwd=0, preprocess_bwd=0)

@@ -875,6 +875,18 @@ def col_err(kernel, plain) -> float:
     return float(((kernel - plain).abs().amax(dim=0) / scale).max())
 
 
+def copy_scene(scene):
+    """A copy of ``scene`` for a train step to donate (the step writes its
+    results into the tensors it is given)."""
+    from gaussian_splatting_lightning_tpu_torch.models.gaussians import PARAM_NAMES
+
+    return dataclasses.replace(
+        scene, params=type(scene.params)(**{k: getattr(scene.params, k).clone()
+                                            for k in PARAM_NAMES}),
+        **{k: getattr(scene, k).clone()
+           for k in ("alive", "max_radii2d", "grad_accum", "grad_count")})
+
+
 def check_step_routes():
     """The whole step's gradients at 256x192 with 20k splats: route "cuda"
     (every kernel) against route "plain" (every plain version)."""
@@ -1055,12 +1067,14 @@ def phase5(scene, budget):
     from gaussian_splatting_lightning_tpu_torch.ops import _build, binning, rasterize, ssim
     from gaussian_splatting_lightning_tpu_torch.ops.common import TilingConfig
     from gaussian_splatting_lightning_tpu_torch.training import trainer
-    from gaussian_splatting_lightning_tpu_torch.training.densify import accumulate_stats
+    from gaussian_splatting_lightning_tpu_torch.training.densify import accumulate_stats_
     from gaussian_splatting_lightning_tpu_torch.training.loss import photometric_loss
     from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
-        adam_update,
+        adam_scalars,
+        adam_update_,
         init_adam,
         make_lr_schedules,
+        scalars_tensor,
     )
 
     check_step_routes()
@@ -1074,13 +1088,14 @@ def phase5(scene, budget):
     cfg = trainer.TrainConfig(tiling=tiling)
     expected = dict(TRAIN_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
     start = {k: getattr(scene.params, k).clone() for k in PARAM_NAMES}
-    # TRAIN_STEPS + 1 steps eager and captured from the same start: step 0
-    # warms up (captured: warm-up, capture, replay), the rest are timed
+    # TRAIN_STEPS + 1 steps eager and captured, each from its own copy of
+    # the start: step 0 warms up (captured: warm-up, capture, replay), the
+    # rest are timed
     eager_fn = trainer.make_train_step(cfg, 1.0, w, h, capture=False)
     step_fn = trainer.make_train_step(cfg, 1.0, w, h)
     runs = {}
     for name, fn in (("eager", eager_fn), ("captured", step_fn)):
-        state = {"scene": scene, "adam": init_adam(scene.params), "step": 0}
+        state = {"scene": copy_scene(scene), "adam": init_adam(scene.params), "step": 0}
 
         def one_step(fn=fn, state=state):
             state["scene"], state["adam"], logs = fn(
@@ -1310,7 +1325,8 @@ def phase5(scene, budget):
     inputs = list(leaves.values()) + [offset]
     grads = torch.autograd.grad(loss, inputs, retain_graph=True)
     pgrads = GaussianParams(**dict(zip(PARAM_NAMES, grads)))
-    schedules = make_lr_schedules(cfg.optimizer, 1.0)
+    scalars = scalars_tensor(adam_scalars(make_lr_schedules(cfg.optimizer, 1.0),
+                                          cfg.optimizer, 5, state["adam"].count + 1), "cuda")
     radii = fwd_out.radii.detach()
     stages = {
         "train_step": cuda_time_ms(one_step, 3),
@@ -1323,10 +1339,10 @@ def phase5(scene, budget):
         "  of which K4 segment_sum": k4_ms,
         "  of which K5 blur (VJP)": k5_vjp_ms,
         "  K5 blur (forward, in the loss)": k5_ms,
-        "adam_update": cuda_time_ms(lambda: adam_update(
-            scene.params, pgrads, state["adam"], schedules, cfg.optimizer, 5), 5),
-        "accumulate_stats": cuda_time_ms(
-            lambda: accumulate_stats(scene, radii, grads[-1]), 10),
+        "adam_update_": cuda_time_ms(lambda: adam_update_(
+            scene.params, pgrads, state["adam"], scalars, cfg.optimizer), 5),
+        "accumulate_stats_": cuda_time_ms(
+            lambda: accumulate_stats_(scene, radii, grads[-1]), 10),
     }
     wall = sorted(step_ms)[len(step_ms) // 2]
     print("train_stages_ms: " + json.dumps(
@@ -1600,7 +1616,9 @@ def phase13() -> dict:
         before = _build.launches["adam"]
         opt.adam_update_(got_p, grads, got, scalars, cfg)
         launched = _build.launches["adam"] - before
-        want = opt._adam_plain(params, grads, state, scalars, cfg, None, None)
+        want = copy(params), opt.AdamState(count=15000, mu=copy(mu), nu=copy(nu))
+        opt._adam_plain(want[0], grads, want[1], scalars, cfg, None)
+        want = (want[0], want[1].mu, want[1].nu)
         torch.cuda.synchronize()
         differ = {f"{part}.{k}": int((getattr(a, k).view(torch.int32)
                                       != getattr(b, k).view(torch.int32)).sum())
@@ -1609,7 +1627,7 @@ def phase13() -> dict:
         del got_p, got, want
         ms = cuda_time_ms(lambda: opt.adam_update_(params, grads, state, scalars, cfg), 20)
         plain_ms = cuda_time_ms(lambda: opt._adam_plain(params, grads, state, scalars, cfg,
-                                                        None, (params, state)), 5)
+                                                        None), 5)
         leaves = [getattr(params, k).detach().clone().requires_grad_() for k in PARAM_NAMES]
         for leaf, k in zip(leaves, PARAM_NAMES):
             leaf.grad = getattr(grads, k).clone()
@@ -2548,7 +2566,7 @@ def phase8(scene, budget):
             cam, img, bg = stack_cameras(cams[:b]), targets[:b], torch.zeros(b, 3, device="cuda")
 
         def stepper(step_fn):
-            state = {"scene": scene, "adam": init_adam(scene.params), "step": 0}
+            state = {"scene": copy_scene(scene), "adam": init_adam(scene.params), "step": 0}
 
             def one_step():
                 state["scene"], state["adam"], logs = step_fn(
@@ -2875,7 +2893,7 @@ def nccl_runs(scene, budget, mesh):
             args = (cams, target[None], bg[None])
         else:
             args = (cam, target, bg)
-        st = {"scene": scene, "adam": adam, "step": 0}
+        st = {"scene": copy_scene(scene), "adam": adam, "step": 0}  # each run its own
 
         def one_step(fn=fn, st=st, args=args):
             st["scene"], st["adam"], logs = fn(st["scene"], st["adam"], st["step"], *args)
@@ -2982,7 +3000,8 @@ def mesh_ranks(budget: int, out_path: str) -> int:
     # the reference of the sharded steps, eager: its job is values
     one = trainer.make_train_step(trainer.TrainConfig(tiling=whole_tiling, batch_views=views),
                                   1.0, w, h, capture=False)
-    _, adam1, logs1 = one(scene, init_adam(scene.params), 0, stack_cameras(cams), targets, bgs)
+    _, adam1, logs1 = one(copy_scene(scene), init_adam(scene.params), 0, stack_cameras(cams),
+                          targets, bgs)
     ref_loss, ref_mu = float(logs1["loss"]), adam1.mu
     with torch.no_grad():
         ref_img, ref_stats = trainer.render_scene(scene, cams[0], w, h, bgs[0], whole_tiling)
@@ -3007,7 +3026,7 @@ def mesh_ranks(budget: int, out_path: str) -> int:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         with record_kernel_calls() if check else contextlib.nullcontext() as calls:
-            state = step(scene, adam, 0, *args)
+            state = step(copy_scene(scene), adam, 0, *args)
             torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = dict(_build.launches)
@@ -3594,8 +3613,8 @@ def mesh4_steps_rank(out_path: str) -> int:
         cfg1 = trainer.TrainConfig(tiling=TilingConfig(max_pairs=budget, block=blk),
                                    batch_views=len(cams))
         one = trainer.make_train_step(cfg1, 1.0, w, h, capture=False)
-        _, adam1, logs1 = one(scene, init_adam(scene.params), 0, stack_cameras(cams),
-                              targets, bgs)
+        _, adam1, logs1 = one(copy_scene(scene), init_adam(scene.params), 0,
+                              stack_cameras(cams), targets, bgs)
         ref = {"loss": float(logs1["loss"]), "dropped": int(logs1["num_dropped_pairs"]),
                "num_pairs": int(logs1["num_pairs"]), "budget": budget}
         ref_mu = adam1.mu
@@ -3658,7 +3677,8 @@ def mesh4_shape(mesh, scene, cams, targets, bgs, budget, ref, ref_mu) -> dict:
                                    capacity=scene.capacity, batch_views=b)
 
     def start():
-        return {"scene": scene, "adam": shard_adam(init_adam(scene.params), mesh), "step": 0}
+        return {"scene": copy_scene(scene), "adam": shard_adam(init_adam(scene.params), mesh),
+                "step": 0}
 
     def band(step):
         return {k: [int(x) for x in val] for k, val in step.band_stats.items()}

@@ -52,7 +52,6 @@ from gaussian_splatting_lightning_tpu_torch.training.exposure import apply_expos
 from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
     AdamState,
     adam_scalars,
-    adam_update,
     adam_update_,
     make_lr_schedules,
     scalars_tensor,
@@ -287,28 +286,31 @@ class ShardedTrainStep:
     logs are the same on every rank. ``band_stats`` holds this rank's last
     per-view band ``num_pairs`` and ``num_dropped_pairs``.
 
-    On an NCCL mesh on the kernel route (``rasterizer: cuda``) every call
-    replays a captured graph of the whole step (``utils/graph.py``), the
+    The step donates the scene and Adam as ``make_train_step``'s does, the
     counterpart of the JAX step's
-    ``jax.jit(shard_map(...), donate_argnums=(0, 1))``. The choice is made
-    here, once: gloo's collectives run on the host and cannot be captured,
-    and the tiled route's member table reads the host, so a gloo mesh and
-    the ``plain`` and ``xla`` routes run eagerly, as does ``capture=False``.
-    The mesh keeps a weak reference to the graph, so that ``shutdown(mesh)``
-    releases it before the process group its collectives use.
-    The key is the config, the image size, the mesh shape, the band geometry
-    (``gy_local``, ``band_tiling``), ``sharded_adam``, whether spans are on
-    (``utils/runtime.spanning``), the active SH degree, whether ``exp_mat``
-    and ``depth_target`` are given and the inputs' shapes: the same on every
-    rank, so every rank captures anew at the same step. Captured, the scene and Adam are donated as in ``make_train_step``:
-    the returned ones are the graph's own buffers, updated in place by every
-    replay (another scene or Adam state is copied in), and the logs, the
-    exposure gradient and ``band_stats`` hold until the next replay of any
-    graph. Eager, the step is out of place. ``.key(...)`` (the call's
-    arguments) gives the capture key in pure Python, ``.captured`` the
-    ``graph.Captured`` (None when the step never captures), and
-    ``.in_place(...)`` the donating step run eagerly on any device: the
-    graph's body, updating the caller's tensors in place.
+    ``jax.jit(shard_map(...), donate_argnums=(0, 1))``: it writes the new
+    parameters, moments and statistics into the tensors it was given, and
+    the returned scene and state are built on the tensors it wrote.
+
+    On an NCCL mesh on the kernel route (``rasterizer: cuda``) every call
+    replays a captured graph of that step (``utils/graph.py``). The choice
+    is made here, once: gloo's collectives run on the host and cannot be
+    captured, and the tiled route's member table reads the host, so a gloo
+    mesh and the ``plain`` and ``xla`` routes run the graph's body eagerly,
+    as does ``capture=False``. The mesh keeps a weak reference to the
+    graph, so that ``shutdown(mesh)`` releases it before the process group
+    its collectives use. The key is the config, the image size, the mesh
+    shape, the band geometry (``gy_local``, ``band_tiling``),
+    ``sharded_adam``, whether spans are on (``utils/runtime.spanning``), the
+    active SH degree, whether ``exp_mat`` and ``depth_target`` are given and
+    the inputs' shapes: the same on every rank, so every rank captures anew
+    at the same step. Captured, the returned scene and Adam are the graph's
+    own buffers, updated in place by every replay (another scene or Adam
+    state is copied in), and the logs, the exposure gradient and
+    ``band_stats`` hold until the next replay of any graph. ``.key(...)``
+    (the call's arguments) gives the capture key in pure Python and
+    ``.captured`` the ``graph.Captured`` (None when the step never
+    captures).
 
     ``cfg.sparse_adam`` has no effect here, as in the JAX sharded step."""
 
@@ -337,24 +339,9 @@ class ShardedTrainStep:
 
     def __call__(self, scene: GaussianScene, adam: AdamState, step, cameras: Camera,
                  images, backgrounds, exp_mat=None, depth_target=None):
-        if self.captured is not None and scene.device.type == "cuda":
-            return self.in_place(scene, adam, step, cameras, images, backgrounds, exp_mat,
-                                 depth_target, run=self.captured)
         self._check_capacity(scene)
-        scene, adam, logs, exp_grad, n_pairs, dropped = self._step(
-            scene, adam, cameras, images, backgrounds, exp_mat, depth_target, step=step)
-        self.band_stats = {"num_pairs": n_pairs, "num_dropped_pairs": dropped}
-        if exp_mat is not None:
-            return scene, adam, logs, exp_grad
-        return scene, adam, logs
-
-    def in_place(self, scene: GaussianScene, adam: AdamState, step, cameras: Camera,
-                 images, backgrounds, exp_mat=None, depth_target=None, run=None):
-        """The donating step: ``run`` (the step's body eagerly, or its
-        captured graph) updates the scene's and Adam's tensors in place (the
-        graph's buffers when captured) and the results are built on them."""
-        self._check_capacity(scene)
-        run = run or self._body
+        run = (self._body if self.captured is None or scene.device.type != "cuda"
+               else self.captured)
         scalars = scalars_tensor(adam_scalars(self.schedules, self.cfg.optimizer, step,
                                               adam.count + 1), scene.device)
         inputs = step_tensors(scene, adam, scalars, cameras, images, backgrounds, exp_mat,
@@ -391,17 +378,15 @@ class ShardedTrainStep:
     def _body(self, static, *t):
         scene, adam, scalars, cameras, images, backgrounds, exp_mat, depth_target = step_args(
             t, *static[-3:])
-        _, _, logs, exp_grad, n_pairs, dropped = self._step(
-            scene, adam, cameras, images, backgrounds, exp_mat, depth_target, scalars=scalars)
-        return logs, exp_grad, n_pairs, dropped
+        return self._step(scene, adam, scalars, cameras, images, backgrounds, exp_mat,
+                          depth_target)
 
-    def _step(self, scene, adam, cameras, images, backgrounds, exp_mat, depth_target,
-              step=None, scalars=None):
-        """The step, out of place with Adam at ``step`` (the eager step), or
-        given ``scalars`` (``adam_scalars`` on the device) in place: the new
+    def _step(self, scene, adam, scalars, cameras, images, backgrounds, exp_mat,
+              depth_target):
+        """The step with ``scalars`` (``adam_scalars`` on the device): the new
         parameters, moments and statistics written into ``scene``'s and
-        ``adam``'s own tensors (the graph's body), with the same bits.
-        Returns (scene, adam, logs, exp_grad, band pairs, band drops)."""
+        ``adam``'s own tensors. Returns (logs, exp_grad, band pairs, band
+        drops)."""
         cfg, mesh = self.cfg, self.mesh
         n_dev = mesh.size
         b_local = images.shape[0]
@@ -456,7 +441,7 @@ class ShardedTrainStep:
             logs["depth_l1"] = sums[3].mean()
             logs["loss"] = logs["loss"] + cfg.w_depth * logs["depth_l1"]
 
-        new_params, adam = self._update(scene, adam, grads[:len(PARAM_NAMES)], step, scalars)
+        self._update(scene, adam, grads[:len(PARAM_NAMES)], scalars)
         # each view's own screen-space signal: the sum over the ring, times
         # b_local to undo the batch mean (gs_lightning_module.py:175-178)
         screen = mesh.all_reduce(grads[len(PARAM_NAMES)], "tile") * b_local
@@ -475,14 +460,9 @@ class ShardedTrainStep:
                                            seen.to(torch.float32).sum(dim=0)]), "view")
         max_radii = mesh.all_reduce(torch.amax(radii, dim=0), "view", op="max")
 
-        def dst(name):
-            return None if scalars is None else getattr(scene, name)
-
-        scene = dataclasses.replace(
-            scene, params=new_params,
-            max_radii2d=torch.maximum(scene.max_radii2d, max_radii, out=dst("max_radii2d")),
-            grad_accum=torch.add(scene.grad_accum, acc[0], out=dst("grad_accum")),
-            grad_count=torch.add(scene.grad_count, acc[1], out=dst("grad_count")))
+        torch.maximum(scene.max_radii2d, max_radii, out=scene.max_radii2d)
+        torch.add(scene.grad_accum, acc[0], out=scene.grad_accum)
+        torch.add(scene.grad_count, acc[1], out=scene.grad_count)
 
         keys = list(logs)
         mean = mesh.all_reduce(torch.stack([logs[k] for k in keys]), "world") / n_dev
@@ -497,14 +477,13 @@ class ShardedTrainStep:
         logs["num_pairs"] = top[0] * self.n_tile
         logs["num_tile_overflow"] = top[1]
         runtime.mark("end", radii)
-        return scene, adam, logs, exp_grad, n_pairs, dropped
+        return logs, exp_grad, n_pairs, dropped
 
-    def _update(self, scene, adam, grads, step, scalars):
-        """Sum the ranks' gradients and run Adam: ZeRO-1 (reduce-scatter,
-        this rank's rows, all-gather) or replicated (all-reduce). The six
-        groups travel as one (C, 59) table. Out of place at ``step``, or in
-        place given ``scalars`` (see ``_step``): the all-gathered rows are
-        then copied into the scene's parameters."""
+    def _update(self, scene, adam, grads, scalars):
+        """Sum the ranks' gradients and run Adam in place: ZeRO-1
+        (reduce-scatter, this rank's rows, all-gather, the gathered rows
+        copied into the scene's parameters) or replicated (all-reduce). The
+        six groups travel as one (C, 59) table."""
         cfg, mesh, cap = self.cfg, self.mesh, scene.capacity
         widths = [g[0].numel() for g in grads]
         flat = torch.cat([g.reshape(cap, -1) for g in grads], dim=1)
@@ -514,33 +493,22 @@ class ShardedTrainStep:
             return GaussianParams(**{k: p.reshape((-1,) + like[i].shape[1:])
                                      for i, (k, p) in enumerate(zip(PARAM_NAMES, parts))})
 
-        def adam_step(params, g):
-            if scalars is None:
-                return adam_update(params, g, adam, self.schedules, cfg.optimizer, step)
-            return params, adam_update_(params, g, adam, scalars, cfg.optimizer)
-
         shapes = [getattr(scene.params, k) for k in PARAM_NAMES]
         if not self.sharded_adam:
             summed = mesh.all_reduce(flat, "world") / self.n_view
-            return adam_step(scene.params, split(summed, shapes))
+            adam_update_(scene.params, split(summed, shapes), adam, scalars, cfg.optimizer)
+            return
         rows = cap // mesh.size
         i = mesh.axis_index("world")
         g_shard = mesh.reduce_scatter(flat, "world", dim=0) / self.n_view
         p_shard = GaussianParams(**{k: getattr(scene.params, k)[i * rows:(i + 1) * rows]
                                     for k in PARAM_NAMES})
-        new_shard, adam = adam_step(p_shard, split(g_shard, shapes))
-        table = torch.cat([getattr(new_shard, k).reshape(rows, -1) for k in PARAM_NAMES],
+        adam_update_(p_shard, split(g_shard, shapes), adam, scalars, cfg.optimizer)
+        table = torch.cat([getattr(p_shard, k).reshape(rows, -1) for k in PARAM_NAMES],
                           dim=1)
         whole = split(mesh.all_gather(table, "world", dim=0), shapes)
-        if scalars is None:
-            # each group a tensor of its own, as the graph's buffers are: the
-            # next step's reductions over a strided view of the table sum in
-            # another order
-            return GaussianParams(**{k: getattr(whole, k).contiguous()
-                                     for k in PARAM_NAMES}), adam
         for k in PARAM_NAMES:
             getattr(scene.params, k).copy_(getattr(whole, k))
-        return scene.params, adam
 
 
 def make_sharded_train_step(cfg, spatial_scale: float, width: int, height: int,

@@ -67,7 +67,11 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
     )
 
     w, h, n = width, height, splats
-    scene = interop.synthetic_scene(n, n, scale=0.01, device=device)
+
+    def fresh():  # the scene anew: each step donates its own
+        return interop.synthetic_scene(n, n, scale=0.01, device=device)
+
+    scene = fresh()
     cam = interop.camera(w, h, device=device)
     dev = scene.device
     budget = pair_budget(scene, cam, w, h, headroom=2.0)
@@ -125,7 +129,7 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
         size=(1, 3, h, w)).astype(np.float32)).to(dev)
     bgs = torch.zeros(1, 3, device=dev)
     _, _, logs = make_train_step(tcfg, 2.0, w, h, capture=False)(
-        scene, init_adam(scene.params), 0, cam, target[0], bgs[0])
+        fresh(), init_adam(scene.params), 0, cam, target[0], bgs[0])
     ref_loss = float(logs["loss"])
     info = init_distributed(dev.type, rank=0, world_size=1,
                             init_method=f"tcp://localhost:{_free_port()}")
@@ -136,7 +140,7 @@ def run_check(width=512, height=384, splats=100_000, bands=2, out=None,
         adam = init_adam(scene.params)
         if step.sharded_adam:
             adam = shard_adam(adam, mesh)
-        _, _, logs = step(scene, adam, 0, stack_cameras([cam]), target, bgs)
+        _, _, logs = step(fresh(), adam, 0, stack_cameras([cam]), target, bgs)
         loss = float(logs["loss"])
     finally:
         shutdown(mesh)  # the step's graph goes before the communicators it uses

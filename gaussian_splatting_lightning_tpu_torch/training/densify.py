@@ -58,24 +58,23 @@ def accumulate_stats(
     radii: torch.Tensor,  # (C,) or (B, C) from the render
     screenspace_grad: torch.Tensor,  # (C, 2) or (B, C, 2) NDC mean gradients
 ) -> GaussianScene:
-    """update_max_radii2D / update_xyz_gradient (gaussian_model.py:174-181),
-    gated on radii > 0. A leading view axis (the view-batched step) reduces
-    as B reference steps in a row would: the max of the radii, the sum of
-    the per-view gradient norms, and the count raised by the number of views
-    that saw the splat. Returns a scene with three new statistics."""
-    return _accumulate(scene, radii, screenspace_grad, None)
+    """``accumulate_stats_`` on a copy of the three statistics: a new scene,
+    the caller's tensors left as they were (the JAX function's form; the
+    tests' reference)."""
+    copy = dataclasses.replace(scene, max_radii2d=scene.max_radii2d.clone(),
+                               grad_accum=scene.grad_accum.clone(),
+                               grad_count=scene.grad_count.clone())
+    return accumulate_stats_(copy, radii, screenspace_grad)
 
 
 def accumulate_stats_(scene: GaussianScene, radii: torch.Tensor,
                       screenspace_grad: torch.Tensor) -> GaussianScene:
-    """``accumulate_stats`` in place: the statistics written into the scene's
-    own tensors (the donated step's form); the same bits."""
-    return _accumulate(scene, radii, screenspace_grad, scene)
-
-
-def _accumulate(scene, radii, screenspace_grad, out):
-    """The statistics as new tensors (``out`` None) or written into
-    ``out``'s: the same operations either way."""
+    """update_max_radii2D / update_xyz_gradient (gaussian_model.py:174-181),
+    gated on radii > 0, written into the scene's own statistics (the donated
+    step's form). A leading view axis (the view-batched step) reduces as B
+    reference steps in a row would: the max of the radii, the sum of the
+    per-view gradient norms, and the count raised by the number of views
+    that saw the splat. Returns the scene."""
     seen = radii > 0
     norms = torch.linalg.vector_norm(screenspace_grad[..., :2], dim=-1)
     contrib = torch.where(seen, norms, 0.0)
@@ -86,16 +85,11 @@ def _accumulate(scene, radii, screenspace_grad, out):
         seen = radii > 0
     else:
         count = seen.to(scene.grad_count.dtype)
-    def dst(name):
-        return None if out is None else getattr(out, name)
-
-    return dataclasses.replace(
-        scene,
-        max_radii2d=torch.where(seen, torch.maximum(scene.max_radii2d, radii),
-                                scene.max_radii2d, out=dst("max_radii2d")),
-        grad_accum=torch.add(scene.grad_accum, contrib, out=dst("grad_accum")),
-        grad_count=torch.add(scene.grad_count, count, out=dst("grad_count")),
-    )
+    torch.where(seen, torch.maximum(scene.max_radii2d, radii), scene.max_radii2d,
+                out=scene.max_radii2d)
+    torch.add(scene.grad_accum, contrib, out=scene.grad_accum)
+    torch.add(scene.grad_count, count, out=scene.grad_count)
+    return scene
 
 
 def _scatter_drop(leaf: torch.Tensor, dst: torch.Tensor, values) -> torch.Tensor:

@@ -113,53 +113,40 @@ def scalars_tensor(values, device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
-def _adam(params, grads, state, scalars, cfg, visible, out):
-    """The update of every group, ``out`` None (new tensors) or
-    (params, state) to write into. CUDA tensors take one launch of
-    ``ops/adam.py``'s kernel, which raises on what it does not take; other
-    devices take ``_adam_plain``. Returns (params, mu, nu)."""
+def _adam(params, grads, state, scalars, cfg, visible):
+    """The update of every group, written into ``params``' and ``state``'s
+    own tensors. CUDA tensors take one launch of ``ops/adam.py``'s kernel,
+    which raises on what it does not take; other devices take
+    ``_adam_plain``."""
     if params.xyz.device.type != "cuda":
-        return _adam_plain(params, grads, state, scalars, cfg, visible, out)
-    if out is None:
-        def fresh(x):
-            return GaussianParams(**{k: torch.empty_like(getattr(x, k)) for k in PARAM_NAMES})
-
-        out = (fresh(params), AdamState(count=state.count, mu=fresh(state.mu),
-                                        nu=fresh(state.nu)))
-    groups = [tuple(getattr(x, name) for x in (params, grads, state.mu, state.nu, out[0],
-                                               out[1].mu, out[1].nu))
+        _adam_plain(params, grads, state, scalars, cfg, visible)
+        return
+    groups = [tuple(getattr(x, name) for x in (params, grads, state.mu, state.nu, params,
+                                               state.mu, state.nu))
               for name in PARAM_NAMES]
     adam_kernel.adam_update_kernel(groups, scalars, visible, cfg.beta1, cfg.beta2, cfg.eps)
-    return out[0], out[1].mu, out[1].nu
 
 
-def _adam_plain(params, grads, state, scalars, cfg, visible, out):
-    """``_adam``'s plain version, the JAX update operation for operation:
-    ``out`` None (new tensors) or (params, state) to write into, the same
-    operations either way, so the two give the same bits. A sparse update
-    writes its masked results. The kernel rounds where these operations
-    round on the card, so it gives their bits too."""
+def _adam_plain(params, grads, state, scalars, cfg, visible):
+    """``_adam``'s plain version, the JAX update operation for operation,
+    written into ``params``' and ``state``'s tensors. A sparse update writes
+    its masked results. The kernel rounds where these operations round on
+    the card, so it gives their bits."""
     b1, b2 = cfg.beta1, cfg.beta2
     bc1, bc2 = scalars[len(PARAM_NAMES)], scalars[len(PARAM_NAMES) + 1]
     dense = visible is None
-    new = {"p": {}, "m": {}, "v": {}}
     for i, name in enumerate(PARAM_NAMES):
         p, g, m, v = (getattr(x, name) for x in (params, grads, state.mu, state.nu))
-        p_out, m_out, v_out = (None, None, None) if out is None else (
-            getattr(x, name) for x in (out[0], out[1].mu, out[1].nu))
-        m_new = torch.add(b1 * m, (1.0 - b1) * g, out=m_out if dense else None)
-        v_new = torch.add(b2 * v, (1.0 - b2) * g * g, out=v_out if dense else None)
+        m_new = torch.add(b1 * m, (1.0 - b1) * g, out=m if dense else None)
+        v_new = torch.add(b2 * v, (1.0 - b2) * g * g, out=v if dense else None)
         update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         if dense:
-            p_new = torch.sub(p, scalars[i] * update, out=p_out)
+            torch.sub(p, scalars[i] * update, out=p)
         else:
             vis = visible.reshape((-1,) + (1,) * (p.dim() - 1))
-            p_new = torch.where(vis, p - scalars[i] * update, p, out=p_out)
-            m_new = torch.where(vis, m_new, m, out=m_out)
-            v_new = torch.where(vis, v_new, v, out=v_out)
-        new["p"][name], new["m"][name], new["v"][name] = p_new, m_new, v_new
-    return (GaussianParams(**new["p"]), GaussianParams(**new["m"]),
-            GaussianParams(**new["v"]))
+            torch.where(vis, p - scalars[i] * update, p, out=p)
+            torch.where(vis, m_new, m, out=m)
+            torch.where(vis, v_new, v, out=v)
 
 
 @torch.no_grad()
@@ -172,17 +159,22 @@ def adam_update(
     step,
     visible=None,
 ):
-    """One Adam step; returns (new params, new state) and leaves the inputs
-    as they were (out of place, like the JAX function). ``step`` is the
-    global training step, which drives the learning-rate schedules.
+    """``adam_update_`` on a copy: returns (new params, new state) and
+    leaves the inputs as they were (the JAX function's form; the tests'
+    reference). ``step`` is the global training step, which drives the
+    learning-rate schedules.
 
     ``visible`` (C,) bool gives sparse-Adam semantics: rows not rendered
     this step keep their parameters and moments.
     """
-    count = state.count + 1
-    scalars = scalars_tensor(adam_scalars(schedules, cfg, step, count), params.xyz.device)
-    new_params, mu, nu = _adam(params, grads, state, scalars, cfg, visible, None)
-    return new_params, AdamState(count=count, mu=mu, nu=nu)
+    def copy(x):
+        return GaussianParams(**{k: getattr(x, k).clone() for k in PARAM_NAMES})
+
+    new_params = copy(params)
+    new = AdamState(count=state.count, mu=copy(state.mu), nu=copy(state.nu))
+    scalars = scalars_tensor(adam_scalars(schedules, cfg, step, state.count + 1),
+                             params.xyz.device)
+    return new_params, adam_update_(new_params, grads, new, scalars, cfg, visible)
 
 
 @torch.no_grad()
@@ -194,11 +186,14 @@ def adam_update_(
     cfg: OptimizerConfig,
     visible=None,
 ) -> AdamState:
-    """``adam_update`` in place, the counterpart of the JAX step's donated
+    """One Adam step in place, the counterpart of the JAX step's donated
     update: writes the new parameters and moments into ``params``' and
     ``state``'s own tensors and returns the state with its count raised.
     ``scalars`` (8,) is ``adam_scalars`` of this step on the parameters'
     device, an input rather than constants, so a captured step replays
-    with each step's values. The same bits as ``adam_update``."""
-    _adam(params, grads, state, scalars, cfg, visible, (params, state))
+    with each step's values.
+
+    ``visible`` (C,) bool gives sparse-Adam semantics: rows not rendered
+    this step keep their parameters and moments."""
+    _adam(params, grads, state, scalars, cfg, visible)
     return AdamState(count=state.count + 1, mu=state.mu, nu=state.nu)

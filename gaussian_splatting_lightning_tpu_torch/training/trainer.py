@@ -9,7 +9,9 @@ card the step, the eval step, the serving render (``make_render``) and the
 exposure update (``training/exposure.py``) each replay a captured CUDA
 graph (``utils/graph.py``), the counterpart of the JAX package's
 ``jax.jit``; on the CPU, with ``capture=False`` and on the
-``plain`` and ``xla`` routes they run eagerly.
+``plain`` and ``xla`` routes they run eagerly. The step donates the scene
+and Adam on every device and route, as the JAX step does: captured or not,
+it is one body that writes its results into the tensors it is given.
 With ``batch_views`` B > 1 the step takes B views stacked along a leading
 axis and renders them in one pass (each kernel launched once for all B, as
 ``vmap`` gives the JAX kernels a batch grid axis); the loss is the mean over
@@ -64,7 +66,6 @@ from gaussian_splatting_lightning_tpu_torch.ops.rasterize import rasterize, rast
 from gaussian_splatting_lightning_tpu_torch.ops.rasterize_tiled import rasterize_tiled
 from gaussian_splatting_lightning_tpu_torch.training.densify import (
     DensifyConfig,
-    accumulate_stats,
     accumulate_stats_,
     densify_and_prune,
 )
@@ -82,7 +83,7 @@ from gaussian_splatting_lightning_tpu_torch.training.optimizer import (
     AdamState,
     OptimizerConfig,
     adam_scalars,
-    adam_update,
+    adam_update,  # noqa: F401 (the planted faults of gsbench/faults.py replace it here)
     adam_update_,
     init_adam,
     make_lr_schedules,
@@ -409,47 +410,33 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
     (``step_gradients``) and the stats reduce over the views as the JAX
     batched step's do: dropped pairs summed, pairs and overflow maxed.
 
+    The step donates the scene and Adam, on every device and route, as the
+    JAX step's ``jax.jit(..., donate_argnums=(0, 1))`` does: the caller
+    gives up the tensors it passes, the step writes the new parameters,
+    moments and statistics in place, and the returned scene and state are
+    built on the tensors it wrote. A caller that wants its start state
+    afterwards passes a copy. The learning rates and
+    bias corrections reach the step as a device input (``adam_scalars``,
+    computed on the host per step).
+
     On CUDA the kernel route (``rasterizer: cuda``) replays a captured graph
-    of the whole step (``utils/graph.py``), the counterpart of the JAX
-    step's ``jax.jit(..., donate_argnums=(0, 1))``: the step's key is the
-    config, the image size, whether spans are on (``utils/runtime.spanning``:
-    the marks of ``runtime.SPANS`` are then nodes of the graph), the active
-    SH degree, whether ``exp_mat`` and ``depth_target`` are given and the
-    inputs' shapes, so a new budget, SH degree or span setting captures
-    anew. The scene and Adam are donated: the returned ones
-    are the graph's own buffers, updated in place by every replay (passing
-    them back copies nothing; another scene is copied in), and the logs and
-    ``exp_grad`` hold until the next replay of any graph. The learning
-    rates and bias corrections reach the graph as a device input
-    (``adam_scalars``), computed on the host per step as the eager step
-    does. ``capture=False``, a CPU scene, and the ``plain`` and ``xla``
-    routes run eagerly, out of place. ``train_step.key(...)`` (same
-    arguments) gives the capture key in pure Python, ``train_step.captured``
-    the ``graph.Captured`` (None when the step never captures), and
-    ``train_step.in_place(...)`` the donating step run eagerly on any
-    device: the graph's body, updating the caller's tensors in place."""
+    of that step (``utils/graph.py``): the step's key is the config, the
+    image size, whether spans are on (``utils/runtime.spanning``: the marks
+    of ``runtime.SPANS`` are then nodes of the graph), the active SH degree,
+    whether ``exp_mat`` and ``depth_target`` are given and the inputs'
+    shapes, so a new budget, SH degree or span setting captures anew. The
+    returned scene and Adam are then the graph's own buffers, updated in
+    place by every replay (passing them back copies nothing; another scene
+    is copied in), and the logs and ``exp_grad`` hold until the next replay
+    of any graph. ``capture=False``, a CPU scene, and the ``plain`` and
+    ``xla`` routes run the graph's body eagerly. ``train_step.key(...)``
+    (same arguments) gives the capture key in pure Python and
+    ``train_step.captured`` the ``graph.Captured`` (None when the step never
+    captures)."""
     schedules = make_lr_schedules(cfg.optimizer, spatial_scale)
     resolve_rasterizer(cfg.rasterizer)  # refuse an unknown name up front
     capture = capture and cfg.rasterizer == "cuda"
     n_scalars = len(PARAM_NAMES) + 2
-
-    def eager(scene: GaussianScene, adam, step, camera: Camera, image,
-              background, exp_mat=None, depth_target=None):
-        param_grads, screen_grads, exp_grad, radii, logs, stats = step_gradients(
-            cfg, scene, camera, width, height, image, background, exp_mat,
-            depth_target)
-        new_params, adam = adam_update(scene.params, param_grads, adam, schedules,
-                                       cfg.optimizer, step, visible=_visible(cfg, radii))
-        scene = dataclasses.replace(scene, params=new_params)
-        runtime.mark("stats", radii)
-        # densification signal for the next batch start
-        # (gs_lightning_module.py:175-178)
-        scene = accumulate_stats(scene, radii, screen_grads)
-        logs = _step_logs(logs, scene, stats)
-        runtime.mark("end", radii)
-        if exp_mat is not None:
-            return scene, adam, logs, exp_grad
-        return scene, adam, logs
 
     def static_of(scene, exp_mat, depth_target):
         return (cfg, width, height, runtime.spans_on(), scene.active_sh_degree,
@@ -471,11 +458,9 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
 
     graphed = graph.capture(body, name="train_step") if capture else None
 
-    def in_place(scene: GaussianScene, adam, step, camera: Camera, image, background,
-                 exp_mat=None, depth_target=None, run=body):
-        """The donating step: ``run`` (the step's body eagerly, or its
-        captured graph) updates the scene's and Adam's tensors in place (the
-        graph's buffers when captured) and the results are built on them."""
+    def train_step(scene: GaussianScene, adam, step, camera: Camera, image,
+                   background, exp_mat=None, depth_target=None):
+        run = body if graphed is None or scene.device.type != "cuda" else graphed
         scalars = scalars_tensor(adam_scalars(schedules, cfg.optimizer, step, adam.count + 1),
                                  scene.device)
         inputs = step_tensors(scene, adam, scalars, camera, image, background, exp_mat,
@@ -487,14 +472,6 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
             return scene, adam, dict(logs), exp_grad
         return scene, adam, dict(logs)
 
-    def train_step(scene: GaussianScene, adam, step, camera: Camera, image,
-                   background, exp_mat=None, depth_target=None):
-        if graphed is None or scene.device.type != "cuda":
-            return eager(scene, adam, step, camera, image, background, exp_mat,
-                         depth_target)
-        return in_place(scene, adam, step, camera, image, background, exp_mat,
-                        depth_target, run=graphed)
-
     def key(scene, adam, step, camera, image, background, exp_mat=None, depth_target=None):
         del step
         return graph.graph_key(static_of(scene, exp_mat, depth_target), step_tensors(
@@ -503,7 +480,6 @@ def make_train_step(cfg: TrainConfig, spatial_scale: float, width: int, height: 
 
     train_step.key = key
     train_step.captured = graphed
-    train_step.in_place = in_place
     return train_step
 
 
@@ -616,7 +592,8 @@ class Trainer:
     JAX trainer recompiles on a budget growth. Checkpoints and densify read
     the buffers (on a mesh gathering Adam with eager collectives between
     replays). A gloo mesh, the ``plain`` and ``xla`` routes and the CPU run
-    eagerly.
+    the same step eagerly, which writes into ``self.scene``'s and
+    ``self.adam``'s own tensors.
 
     With spans on (``utils/runtime.spanning``), under a profiler, the loop
     marks its host work with spans (``utils/runtime.span``): ``trainer.step``

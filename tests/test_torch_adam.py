@@ -44,7 +44,9 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch, sparse, in_place):
     visible = visible if sparse else None
     sched = topt.make_lr_schedules(CFG, 1.7)
     scalars = topt.scalars_tensor(topt.adam_scalars(sched, CFG, 15001, state.count + 1), "cpu")
-    want = topt._adam_plain(params, grads, state, scalars, CFG, visible, None)
+    want_p, want_state = clone_state(params, state)
+    topt._adam_plain(want_p, grads, want_state, scalars, CFG, visible)
+    want = (want_p, want_state.mu, want_state.nu)
     launched = _build.launches["adam"]
     if in_place:
         p, st = clone_state(params, state)

@@ -17,7 +17,8 @@ every operation in the same order), gradients within 1e-5 of each splat's
 scale (the backward sums in another order); a captured train step runs
 the pair once a replay and never the composition. Adam's kernel
 (``csrc/adam.cu``) against ``_adam_plain`` on the card: the same bits of
-every parameter and moment, in place and out of place, dense and sparse, at
+every parameter and moment, in place (``adam_update_``) and through the
+copying ``adam_update``, dense and sparse, at
 1,001 and at 1M rows (ragged tails) at SH degree 3 and 0, with one gradient
 a group and with the mesh's column slices of one (rows, 59) table, and over
 two replays of a captured graph with different scalars. These tests need an NVIDIA
@@ -891,11 +892,15 @@ def _clone(scene):
 ADAM_SIZES = {"1001_sh3": (1001, 3), "1001_sh0": (1001, 0), "1m_sh3": (1 << 20, 3)}
 
 
+def _adam_sched():
+    return optimizer.make_lr_schedules(optimizer.OptimizerConfig(), 2.3)
+
+
 def _adam_scalars(count):
+    """The scalars of Adam step ``count`` at training step 15000 + count."""
     cfg = optimizer.OptimizerConfig()
-    sched = optimizer.make_lr_schedules(cfg, 2.3)
-    return optimizer.scalars_tensor(optimizer.adam_scalars(sched, cfg, 15000 + count, count),
-                                    "cuda")
+    return optimizer.scalars_tensor(optimizer.adam_scalars(_adam_sched(), cfg, 15000 + count,
+                                                           count), "cuda")
 
 
 def _adam_bits_differ(got, want):
@@ -922,15 +927,21 @@ def test_adam_kernel_is_bit_identical_to_plain(size, grads, sparse, in_place):
     assert paths == ["vec4" if grads == "contiguous" else "scalar"] * len(paths)
     for count in (1, 15001):  # bias corrections far from 1 and near it
         scalars = _adam_scalars(count)
-        want = optimizer._adam_plain(params, g, state, scalars, cfg, visible, None)
+        want_p, want_state = clone_state(params, state)
+        optimizer._adam_plain(want_p, g, want_state, scalars, cfg, visible)
+        want = (want_p, want_state.mu, want_state.nu)
         kept = clone_state(params, state)
         before = _build.launches["adam"]
         if in_place:
             p, st = clone_state(params, state)
-            optimizer._adam(p, g, st, scalars, cfg, visible, (p, st))
+            optimizer.adam_update_(p, g, st, scalars, cfg, visible)
             got = (p, st.mu, st.nu)
         else:
-            got = optimizer._adam(params, g, state, scalars, cfg, visible, None)
+            # the copying wrapper, at the step and count that give ``scalars``
+            prior = optimizer.AdamState(count - 1, state.mu, state.nu)
+            got_p, new = optimizer.adam_update(params, g, prior, _adam_sched(), cfg,
+                                               15000 + count, visible)
+            got = (got_p, new.mu, new.nu)
         torch.cuda.synchronize()
         assert _build.launches["adam"] == before + 1
         assert not _adam_bits_differ(got, want)
@@ -958,7 +969,7 @@ def test_adam_kernel_replays_each_steps_scalars_in_a_captured_graph(sparse):
         new = _adam_scalars(count)
         scalars.copy_(new)
         graph.replay()
-        optimizer._adam_plain(ref[0], g, ref[1], new, cfg, visible, ref)
+        optimizer._adam_plain(ref[0], g, ref[1], new, cfg, visible)
         torch.cuda.synchronize()
         assert not _adam_bits_differ((params, state.mu, state.nu),
                                      (ref[0], ref[1].mu, ref[1].nu)), count

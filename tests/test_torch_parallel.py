@@ -22,7 +22,9 @@ Bounds, and why:
   1e-6; ``grad_accum`` 1e-3 and 1e-7; ``max_radii2d`` 1e-4 and 1e-5; the
   exposure gradient 1e-4 and 1e-7), each Adam first moment (after step 0,
   (1 - beta1) times the gradient) within 1e-4 of its group's largest
-  |value|, counts exactly, and every rank's outputs the same bits;
+  |value|, counts exactly, and every rank's outputs the same bits; three
+  donating steps in a row the same bounds at every step and after the
+  last, the second moments as the first;
 - the mesh ``Trainer`` and CLI against the one-process port at the same
   global batch: the loss at every logged step within 1e-5 relative (the
   coupled-step bound), alive counts exactly, ``xyz`` within 1e-3 and 1e-5
@@ -176,8 +178,9 @@ def test_band_geometry_and_budget_match_jax(height, n_tile, block):
 
 # ---- the sharded train step -------------------------------------------------
 
-def jax_step_result(case):
-    """JAX's sharded step on one case: (scene, adam, logs, exp_grad)."""
+def jax_step_results(case, steps=1):
+    """JAX's sharded step on one case, ``steps`` steps from the case's start
+    on the same batch: (scene, adam, logs, exp_grad) after each step."""
     name, (v, t), route, cap, exposure, depth = case
     cfg = JaxTrainConfig(
         capacity=cap, rasterizer=JAX_ROUTE[route], use_exposure=exposure,
@@ -186,15 +189,24 @@ def jax_step_result(case):
     step = jax_step(cfg, 4.0, mw.W, mw.H, jax_make_mesh(v, t, devices=jax_devices()))
     images, depth_t, exp = mw.targets()
     scene = jax_scene(cap)
-    args = [scene, jax_init_adam(scene.params), 0, jax_cameras(), jnp.asarray(images),
-            jnp.zeros((mw.BATCH, 3))]
+    adam = jax_init_adam(scene.params)
+    args = [jax_cameras(), jnp.asarray(images), jnp.zeros((mw.BATCH, 3))]
     kw = {}
     if exposure:
         kw["exp_mat"] = jnp.asarray(exp)
     if depth:
         kw["depth_target"] = jnp.asarray(depth_t)
-    out = step(*args, **kw)
-    return out if exposure else out + (None,)
+    results = []
+    for i in range(steps):
+        out = step(scene, adam, i, *args, **kw)
+        scene, adam = out[:2]
+        results.append(out if exposure else out + (None,))
+    return results
+
+
+def jax_step_result(case):
+    """JAX's sharded step on one case: (scene, adam, logs, exp_grad)."""
+    return jax_step_results(case)[0]
 
 
 def assert_step_matches_jax(res, key, want, case):
@@ -264,29 +276,46 @@ def test_seam_needs_the_reduce_scatter_backward(ranks):
 
 @pytest.mark.parametrize("case", mw.DONATE_CASES, ids=lambda c: c[0])
 def test_sharded_donating_step_matches_out_of_place(case, ranks):
-    """The donating body of the sharded step (``in_place``, run eagerly: the
-    graph an NCCL mesh captures) for ``DONATE_STEPS`` steps against the
-    out-of-place eager step from the same start, ZeRO-1 on (2, 2) with
-    exposure and depth and replicated on (1, 4): every log at every step,
-    the exposure gradients, the parameters, Adam's moments and the
-    statistics after the last step the same bits on every rank (the same
-    operations in the same order, written into the given tensors), and the
-    donating step's scene the tensors it was given."""
-    name, _, cap, exposure, _ = case
+    """The sharded step (its graph's body run eagerly: what an NCCL mesh
+    captures) for ``DONATE_STEPS`` steps against JAX's sharded step over the
+    same steps, ZeRO-1 on (2, 2) with exposure and depth and replicated on
+    (1, 4): every log and exposure gradient at every step, and after the
+    last step the parameters, Adam's moments and the statistics; the same
+    on every rank, Adam's count ``DONATE_STEPS``, and the scene and moments
+    the tensors the step was given (it donates them)."""
+    name, mesh_shape, cap, exposure, depth = case
+    want = jax_step_results((name, mesh_shape, "plain", cap, exposure, depth),
+                            mw.DONATE_STEPS)
     res = ranks.results()
     same_on_every_rank(res, f"donate/{name}/")
     key = f"donate/{name}"
-    assert bool(res[0][f"{key}/sharded_adam"]) == (cap % RANKS == 0)
-    for r in res:
-        keys = [k for k in r if k.startswith(f"{key}/out/")]
-        assert any("/exp_grad/" in k for k in keys) == exposure
-        assert len(keys) >= 3 * len(PARAM_NAMES) + 9
-        for k in keys:
-            if not k.endswith("same_tensors"):
-                np.testing.assert_array_equal(r[k.replace("/out/", "/in/")], r[k], err_msg=k)
-        assert int(r[f"{key}/in/count"]) == mw.DONATE_STEPS
-        assert r[f"{key}/in/same_tensors"].all()
-        assert not r[f"{key}/out/same_tensors"].any()
+    r = res[0]
+    assert bool(r[f"{key}/sharded_adam"]) == (cap % RANKS == 0)
+    assert int(r[f"{key}/count"]) == mw.DONATE_STEPS
+    assert r[f"{key}/same_tensors"].all()
+    assert any("/exp_grad/" in k for k in r if k.startswith(key)) == exposure
+    for i, (_, _, logs, exp_grad) in enumerate(want):
+        for k in ("loss", "recon", "ssim", "psnr") + (("depth_l1",) if depth else ()):
+            np.testing.assert_allclose(r[f"{key}/log/{k}"][i], float(logs[k]), rtol=1e-5,
+                                       err_msg=f"{k} at step {i}")
+        for k in ("n_gaussians", "num_dropped_pairs", "num_pairs"):
+            assert int(r[f"{key}/log/{k}"][i]) == int(logs[k]), (k, i)
+        if exposure:
+            np.testing.assert_allclose(r[f"{key}/exp_grad/{i}"], np.asarray(exp_grad),
+                                       rtol=1e-4, atol=1e-7, err_msg=f"step {i}")
+    assert not r[f"{key}/log/num_dropped_pairs"].any()
+    scene, adam = want[-1][:2]
+    for k in ("xyz", "opacity"):
+        np.testing.assert_allclose(r[f"{key}/param/{k}"], np.asarray(getattr(scene.params, k)),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    for k in PARAM_NAMES:
+        assert close_to_max(r[f"{key}/mu/{k}"], np.asarray(getattr(adam.mu, k)), 1e-4), k
+        assert close_to_max(r[f"{key}/nu/{k}"], np.asarray(getattr(adam.nu, k)), 1e-4), k
+    np.testing.assert_allclose(r[f"{key}/grad_accum"], np.asarray(scene.grad_accum),
+                               rtol=1e-3, atol=1e-7)
+    np.testing.assert_array_equal(r[f"{key}/grad_count"], np.asarray(scene.grad_count))
+    np.testing.assert_allclose(r[f"{key}/max_radii2d"], np.asarray(scene.max_radii2d),
+                               rtol=1e-4, atol=1e-5)
 
 
 # ---- the band loss ----------------------------------------------------------

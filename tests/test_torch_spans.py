@@ -16,11 +16,11 @@ there). Checked here:
 - The capture keys of the train step, the eval step, the render and the
   sharded step differ with spans on and off in that one entry, and are
   otherwise equal.
-- The eager step, out of place and in place (the captured graph's body),
-  gives the same bits with spans on and off: losses, parameters, moments and
-  statistics, one view and two, with exposure; so does the sharded step on
-  a 1x1 gloo mesh. The identity functions of the backward marks are in the
-  graph with spans on.
+- The eager step (the captured graph's body) gives the same bits with
+  spans on and off: losses, parameters, moments and statistics, one view
+  and two, with exposure, dense and with sparse Adam and a depth target;
+  so does the sharded step on a 1x1 gloo mesh. The identity functions of
+  the backward marks are in the graph with spans on.
 - ``span_segments`` on hand-made events: segment sums, the busy share
   inside the segments, the eval and render sequences left out, and None for
   a mark missing, repeated or out of order.
@@ -205,26 +205,29 @@ def test_capture_keys_hold_the_span_setting(scene):
 CASES = {"one-view": 1, "two-views-exposure": 2}
 
 
+def clone_scene(s):
+    """A copy of ``s`` for a step to donate: the fixture stays as it is."""
+    return dataclasses.replace(
+        s, params=type(s.params)(**{k: getattr(s.params, k).clone() for k in PARAM_NAMES}),
+        alive=s.alive.clone(), max_radii2d=s.max_radii2d.clone(),
+        grad_accum=s.grad_accum.clone(), grad_count=s.grad_count.clone())
+
+
 @pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("donate", [False, True], ids=["out-of-place", "in-place"])
-def test_step_bits_equal_with_spans_on_and_off(scene, case, donate):
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse-depth"])
+def test_step_bits_equal_with_spans_on_and_off(scene, case, sparse):
     b = CASES[case]
     cams = ring_cams(3)
     gen = torch.Generator().manual_seed(1)
     imgs = torch.rand(3, 3, H, W, generator=gen)
     bgs = torch.rand(3, 3, generator=gen)
-    cfg = ttrainer.TrainConfig(tiling=TILING, batch_views=b, capacity=scene.capacity)
-    step = ttrainer.make_train_step(cfg, 1.0, W, H, capture=False)
-    run = step.in_place if donate else step
-
-    def clone(s):
-        return dataclasses.replace(
-            s, params=type(s.params)(**{k: getattr(s.params, k).clone() for k in PARAM_NAMES}),
-            alive=s.alive.clone(), max_radii2d=s.max_radii2d.clone(),
-            grad_accum=s.grad_accum.clone(), grad_count=s.grad_count.clone())
+    depths = torch.rand(3, 1, H, W, generator=gen) * 0.3
+    cfg = ttrainer.TrainConfig(tiling=TILING, batch_views=b, capacity=scene.capacity,
+                               sparse_adam=sparse, w_depth=0.5 if sparse else 0.0)
+    run = ttrainer.make_train_step(cfg, 1.0, W, H, capture=False)
 
     def steps(on):
-        sc, adam = clone(scene), init_adam(scene.params)
+        sc, adam = clone_scene(scene), init_adam(scene.params)
         exp = texposure.init_exposure(3, device="cpu")
         losses, exp_grads = [], []
         with runtime.spanning(on):
@@ -232,10 +235,12 @@ def test_step_bits_equal_with_spans_on_and_off(scene, case, donate):
                 idx = [(t + v) % 3 for v in range(b)]
                 if b == 1:
                     args, extra = [cams[idx[0]], imgs[idx[0]], bgs[idx[0]]], []
+                    kw = {"depth_target": depths[idx[0]]} if sparse else {}
                 else:
                     args = [stack_cameras([cams[j] for j in idx]), imgs[idx], bgs[idx]]
                     extra = [exp.params[idx]]
-                out = run(sc, adam, t, *args, *extra)
+                    kw = {"depth_target": depths[idx]} if sparse else {}
+                out = run(sc, adam, t, *args, *extra, **kw)
                 sc, adam, logs = out[:3]
                 if b > 1:
                     exp_grads.append(out[3].clone())
@@ -278,7 +283,7 @@ def test_mesh_step_bits_equal_with_spans_on_and_off(scene, tmp_path):
         assert step.captured is None
 
         def steps(on):
-            sc, adam, out = scene, shard_adam(init_adam(scene.params), mesh), []
+            sc, adam, out = clone_scene(scene), shard_adam(init_adam(scene.params), mesh), []
             with runtime.spanning(on):
                 for t in range(2):
                     sc, adam, logs, exp_grad = step(sc, adam, t, cams, imgs, bgs, exp)

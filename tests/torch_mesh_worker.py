@@ -43,9 +43,9 @@ STEP_CASES = (
     ("xla-1x4-rep", (1, 4), "xla", 126, False, False),
 )
 SEAM_CASE = STEP_CASES[2]
-# (name, mesh, capacity, exposure, depth): the sharded step's donating body
-# (``in_place``, run eagerly: what an NCCL mesh captures) against the
-# out-of-place step, DONATE_STEPS steps from the same start on route "plain"
+# (name, mesh, capacity, exposure, depth): the sharded step (its graph's
+# body run eagerly: what an NCCL mesh captures) for DONATE_STEPS steps on
+# route "plain", against JAX's sharded step over the same steps
 DONATE_CASES = (
     ("2x2-zero-exp-depth", (2, 2), 128, True, True),
     ("1x4-rep", (1, 4), 126, False, False),
@@ -313,33 +313,37 @@ def task_donate(info, out):
         if depth:
             kw["depth_target"] = torch.from_numpy(depth_t[rows])
         key = f"donate/{name}"
-        for side, fn in (("out", step), ("in", step.in_place)):
-            scene = port_scene(cap)
-            adam = init_adam(scene.params)
-            if step.sharded_adam:
-                adam = shard_adam(adam, mesh)
-            given = [getattr(scene.params, k) for k in PARAM_NAMES] + [scene.grad_accum]
-            logs = {}
-            for i in range(DONATE_STEPS):
-                res = fn(scene, adam, i, *args, **kw)
-                scene, adam = res[:2]
-                for k, val in res[2].items():
-                    logs.setdefault(k, []).append(float(val))
-                if exposure:
-                    out[f"{key}/{side}/exp_grad/{i}"] = res[3].numpy()
-            for k, val in logs.items():
-                out[f"{key}/{side}/log/{k}"] = np.array(val)
-            whole = gather_adam(adam, mesh) if step.sharded_adam else adam
-            for k in PARAM_NAMES:
-                out[f"{key}/{side}/param/{k}"] = getattr(scene.params, k).numpy()
-                out[f"{key}/{side}/mu/{k}"] = getattr(whole.mu, k).numpy()
-                out[f"{key}/{side}/nu/{k}"] = getattr(whole.nu, k).numpy()
-            for k in ("grad_accum", "grad_count", "max_radii2d"):
-                out[f"{key}/{side}/{k}"] = getattr(scene, k).numpy()
-            out[f"{key}/{side}/count"] = np.asarray(adam.count)
-            now = [getattr(scene.params, k) for k in PARAM_NAMES] + [scene.grad_accum]
-            out[f"{key}/{side}/same_tensors"] = np.asarray(
-                [a.data_ptr() == b.data_ptr() for a, b in zip(given, now)])
+        scene = port_scene(cap)
+        adam = init_adam(scene.params)
+        if step.sharded_adam:
+            adam = shard_adam(adam, mesh)
+
+        def held(scene, adam):
+            return ([getattr(x, k) for x in (scene.params, adam.mu, adam.nu)
+                     for k in PARAM_NAMES]
+                    + [getattr(scene, k) for k in ("grad_accum", "grad_count", "max_radii2d")])
+
+        given = held(scene, adam)
+        logs = {}
+        for i in range(DONATE_STEPS):
+            res = step(scene, adam, i, *args, **kw)
+            scene, adam = res[:2]
+            for k, val in res[2].items():
+                logs.setdefault(k, []).append(float(val))
+            if exposure:
+                out[f"{key}/exp_grad/{i}"] = res[3].numpy()
+        for k, val in logs.items():
+            out[f"{key}/log/{k}"] = np.array(val)
+        whole = gather_adam(adam, mesh) if step.sharded_adam else adam
+        for k in PARAM_NAMES:
+            out[f"{key}/param/{k}"] = getattr(scene.params, k).numpy()
+            out[f"{key}/mu/{k}"] = getattr(whole.mu, k).numpy()
+            out[f"{key}/nu/{k}"] = getattr(whole.nu, k).numpy()
+        for k in ("grad_accum", "grad_count", "max_radii2d"):
+            out[f"{key}/{k}"] = getattr(scene, k).numpy()
+        out[f"{key}/count"] = np.asarray(adam.count)
+        out[f"{key}/same_tensors"] = np.asarray(
+            [a is b for a, b in zip(given, held(scene, adam))])
         out[f"{key}/sharded_adam"] = np.asarray(step.sharded_adam)
 
 

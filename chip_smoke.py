@@ -35,8 +35,9 @@ Phases (any failure exits non-zero):
      at 1920x1080 trains for TRAIN_STEPS + 1 steps of ``make_train_step``
      under the same budget, eager (``capture=False``) and captured from the
      same start (a ``train_step:`` line each: loss finite, 0 dropped pairs,
-     the preprocess pair, K1-K4 and Adam launched once and K5 twice per
-     step, every parameter group moved; ``step_graph_check``: each captured loss within STEP_GRAPH_TOL
+     the preprocess pair, K1-K4 and Adam launched once and the photometric
+     kernels four times per step, every parameter group moved;
+     ``step_graph_check``: each captured loss within STEP_GRAPH_TOL
      of the eager one, each parameter and moment column after the last step
      within STEP_GRAPH_TOL of its largest |eager|). Then K3, K4 and K5 are
      held against their plain versions (K3 and K4 also against their own
@@ -95,8 +96,8 @@ Phases (any failure exits non-zero):
      views, the first B of them for B in 1, 2, 4, BATCH_STEPS steps each (a
      ``train_step_batched:`` line each: host wall, CUDA-event time, ms per
      view, launches per step from ``torch.profiler``, K1-K4 and Adam once
-     and K5 twice per step, 0 dropped pairs, peak memory). For each B the
-     batched K1 and bins are identical to the plain version's per view, K2, K3 the
+     and the photometric kernels four times per step, 0 dropped pairs, peak
+     memory). For each B the batched K1 and bins are identical to the plain version's per view, K2, K3 the
      bits of the single-view launches on each view and K4 within 1e-5 of
      its plain version at 1080p; K2 within 1e-4 and K3 within 1e-4 of their
      plain versions at 256x192 with 20k splats. The B = 4 step's gradients
@@ -146,8 +147,9 @@ Phases (any failure exits non-zero):
      entry (``python -m ...scripts.<name>``): the bench (its small and
      headline rungs, parity against the tiled route and the banded check;
      gates: the last line parses, the headline's pairs are BENCH_PAIRS and
-     its budget 2,138,112, 0 dropped, finite rays/s, K1-K4 once and K5
-     twice a step, parity within the bench's 1e-4, the banded check ok),
+     its budget 2,138,112, 0 dropped, finite rays/s, K1-K4 once and the
+     photometric kernels four times a step, parity within the bench's
+     1e-4, the banded check ok),
      ``bench_batched`` at its defaults (finite rows, 0 dropped) and
      ``benchmark_scaling --meshes 1x1,1x2`` (the 1x1 row on NCCL, 1x2
      skipped on one card, its eff columns null exactly when it dropped
@@ -156,9 +158,9 @@ Phases (any failure exits non-zero):
      rungs, its parity rung and banded check, bench_batched at B = 8) with
      every K1-K5 wrapper call recorded and held to its plain version on the
      same inputs (a ``bench_kernels:`` line; K1 and K5 identical, K2 and K3
-     within 1e-4, K4 within 1e-5; K1-K4 called at least once on each path,
-     K5 twice where the loss has SSIM). A ``phase10:`` line holds the
-     numbers, with the headline's bound on the work its data needs
+     within 1e-4, K4 within 1e-5; K1-K4 called at least once on each path;
+     the loss is the photometric kernels', so K5 need not be called). A
+     ``phase10:`` line holds the numbers, with the headline's bound on the work its data needs
      (``counted_bound_ms``: the roofline's bytes, K2's and K3's evaluations
      up to each tile's early stop). The bench and ``bench_batched`` replay
      captured graphs; the kernel records run each path's work eagerly
@@ -225,6 +227,19 @@ Phases (any failure exits non-zero):
      beside the byte bound (7 floats of 4 bytes a parameter, 1,652 B a
      splat). A ``phase13:`` line holds the numbers; the kernels' record
      gets an ``adam`` row with them (at 3M, and per size under ``sizes``).
+  14. (after phase 13) the photometric loss's kernels (``csrc/photometric.cu``)
+     alone on a seeded 1920x1080 RGB view (a fifth of its pixels equal to
+     the target's): three launches forward and one backward; the four logs
+     within PHOT_VALUE_TOL relatively and pred's gradient within
+     PHOT_GRAD_TOL of its largest |value| of the composition
+     (``plain=True``), the same bits on a second call; then the kernels'
+     device ms forward (the derivative maps written) and backward
+     (``torch.profiler``; an eager call's CUDA-event ms beside them), the
+     composition's CUDA-event ms with K5 as the step ran it before
+     (``plain_ms``), and the byte bound (pred and target read three times,
+     the three derivative maps of each channel written and read, the
+     gradient written: 52 bytes a pixel and channel). A ``phase14:`` line holds the numbers; the
+     kernels' record gets a ``photometric`` row with them.
 
 Phases 3, 5, 8 and 10 print a ``graph:`` line: the capture's seconds, and
 for the captured and the eager path each the host wall and CUDA-event ms a
@@ -1086,7 +1101,8 @@ def phase5(scene, budget):
     bg = torch.zeros(3, device="cuda")
     tiling = TilingConfig(max_pairs=budget, block=blk)
     cfg = trainer.TrainConfig(tiling=tiling)
-    expected = dict(TRAIN_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
+    # every kernel's count, K5's 0: the step's loss is the photometric kernels
+    expected = dict(TRAIN_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1, blur=0)
     start = {k: getattr(scene.params, k).clone() for k in PARAM_NAMES}
     # TRAIN_STEPS + 1 steps eager and captured, each from its own copy of
     # the start: step 0 warms up (captured: warm-up, capture, replay), the
@@ -1331,14 +1347,14 @@ def phase5(scene, budget):
     stages = {
         "train_step": cuda_time_ms(one_step, 3),
         "forward (render_scene, autograd on)": cuda_time_ms(forward, 5),
-        "loss (photometric_loss: L1 + SSIM with K5)": cuda_time_ms(
+        "loss (photometric_loss: the photometric kernels' forward)": cuda_time_ms(
             lambda: photometric_loss(fwd_out.image, target, cfg.w_ssim), 5),
         "backward (autograd.grad)": cuda_time_ms(
             lambda: torch.autograd.grad(loss, inputs, retain_graph=True), 3),
         "  of which K3 composite_bwd": k3_ms,
         "  of which K4 segment_sum": k4_ms,
-        "  of which K5 blur (VJP)": k5_vjp_ms,
-        "  K5 blur (forward, in the loss)": k5_ms,
+        "  K5 blur (forward, no longer in the step)": k5_ms,
+        "  K5 blur (VJP, no longer in the step)": k5_vjp_ms,
         "adam_update_": cuda_time_ms(lambda: adam_update_(
             scene.params, pgrads, state["adam"], scalars, cfg.optimizer), 5),
         "accumulate_stats_": cuda_time_ms(
@@ -1654,6 +1670,102 @@ def phase13() -> dict:
             "library_ms": top["library_ms"], "sizes": sizes}
 
 
+# the photometric kernels against the composition (tests/test_torch_cuda_kernels.py):
+# values relative (sums in another order), the gradient as a share of its
+# largest |value| (the map's derivatives round apart from autograd's chain)
+PHOT_VALUE_TOL, PHOT_GRAD_TOL = 1e-6, 1e-5
+PHOT_BYTES_PER_ELEMENT = 4 * (2 + 2 + 3 + 3 + 2 + 1)
+
+
+def phase14() -> dict:
+    """The photometric loss's kernels alone at 1920x1080 against the
+    composition; prints a ``phase14:`` line and returns their row."""
+    import torch
+
+    from gaussian_splatting_lightning_tpu_torch.ops import _build
+    from gaussian_splatting_lightning_tpu_torch.training import loss as tloss
+
+    shape = (3, 1080, 1920)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    pred = torch.rand(shape, device="cuda", generator=gen)
+    target = torch.rand(shape, device="cuda", generator=gen)
+    pred = torch.where(torch.rand(shape, device="cuda", generator=gen) < 0.2, target, pred)
+    names = ("loss", "recon", "ssim", "psnr")
+
+    def run(plain):
+        x = pred.clone().requires_grad_()
+        _, logs = tloss.photometric_loss(x, target, 0.2, plain)
+        (grad,) = torch.autograd.grad(logs["loss"], x)
+        return [logs[k].detach() for k in names], grad
+
+    _build.reset_launch_counts()
+    got, grad = run(False)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    again, grad_again = run(False)
+    want, want_grad = run(True)
+    torch.cuda.synchronize()
+    value_err = {k: float((a - b).abs() / b.abs()) for k, a, b in zip(names, got, want)}
+    grad_err = float((grad - want_grad).abs().max() / want_grad.abs().max())
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(
+        grad, grad_again)
+    max_abs = max([float((a - b).abs()) for a, b in zip(got, want)]
+                  + [float((grad - want_grad).abs().max())])
+    del again, grad_again, want, want_grad
+
+    x = pred.clone().requires_grad_()
+
+    def forward():
+        return tloss.photometric_loss(x, target, 0.2)[0]
+
+    loss = forward()
+    call_fwd_ms = cuda_time_ms(forward, 20)
+    call_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(loss, x, retain_graph=True), 20)
+    # the kernels' own device time a call (an eager call's events also hold
+    # the host's launch and autograd gaps)
+    reps = 20
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.autograd.grad(forward(), x)
+        torch.cuda.synchronize()
+    kernel_ms = {}
+    for ev in prof.key_averages():
+        name = re.search(r"photometric_\w+", ev.key)
+        if name:  # the forward pass's two instances share a name
+            kernel_ms[name.group(0)] = (kernel_ms.get(name.group(0), 0.0)
+                                        + ev.device_time_total / reps / 1e3)
+    fwd_ms = sum(v for k, v in kernel_ms.items() if k != "photometric_bwd_kernel")
+    bwd_ms = kernel_ms.get("photometric_bwd_kernel", 0.0)
+    kernels = tloss.on_kernels
+    tloss.on_kernels = lambda *a: False  # the composition with K5, as the step ran it
+    try:
+        plain_loss = forward()
+        plain_fwd_ms = cuda_time_ms(forward, 5)
+        plain_bwd_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(plain_loss, x, retain_graph=True), 5)
+    finally:
+        tloss.on_kernels = kernels
+    bound_ms = pred.numel() * PHOT_BYTES_PER_ELEMENT / HBM_BYTES_PER_S * 1e3
+    row = {"name": "photometric", "route": "cuda", "source": f"{PKG}/csrc/photometric.cu",
+           "replaces": "none (the JAX package's loss is jnp around the blur kernel, "
+                       "which XLA fuses)",
+           "launches": launches["photometric"], "max_abs_err": max_abs,
+           "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "kernel_ms": kernel_ms,
+           "call_fwd_ms": call_fwd_ms, "call_bwd_ms": call_bwd_ms,
+           "plain_ms": plain_fwd_ms + plain_bwd_ms, "plain_fwd_ms": plain_fwd_ms,
+           "plain_bwd_ms": plain_bwd_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_share": bound_ms / (fwd_ms + bwd_ms), "library_ms": None,
+           "value_rel_err": value_err, "grad_err": grad_err, "same_bits": same_bits}
+    print("phase14: " + json.dumps(row), flush=True)
+    if launches != dict.fromkeys(_build.SOURCES, 0) | {"photometric": 4}:
+        fail(f"phase 14: the photometric loss launched {launches}")
+    if not (max(value_err.values()) <= PHOT_VALUE_TOL and grad_err <= PHOT_GRAD_TOL
+            and same_bits):
+        fail(f"phase 14: the photometric kernels against the composition: {value_err}, "
+             f"gradient {grad_err}, same bits {same_bits}")
+    return row
+
+
 def write_loop_scene(root, w, h):
     """The GT scene's 24 views rendered by the port as PNGs, and a COLMAP
     model: the orbit poses and 20,000 GT centres plus noise with the GT
@@ -1824,7 +1936,8 @@ def phase6(bare_step_syncs: int, work: Path):
         tr.Trainer.save_checkpoint = orig["save_checkpoint"]
     run1_s = time.perf_counter() - t_run1
     launches = dict(_build.launches)
-    if any(v < 1 for v in launches.values()):
+    # the loop's loss and validation run the photometric kernels, not K5
+    if any(v < 1 for k, v in launches.items() if k != "blur"):
         fail(f"phase 6: a kernel was not launched by the training loop: {launches}")
     text = "".join(tee.parts)
     hist = {r["step"]: r for r in trainer.history}
@@ -2556,7 +2669,8 @@ def phase8(scene, budget):
         size=(len(cams), 3, h, w)).astype(np.float32)).cuda()
     tiling = TilingConfig(max_pairs=budget, block=blk)
     m = -(-budget // 128) * 128
-    expected = dict(TRAIN_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1)
+    # every kernel's count, K5's 0: the step's loss is the photometric kernels
+    expected = dict(TRAIN_STEP_LAUNCHES, preprocess_fwd=1, preprocess_bwd=1, blur=0)
     rows, launches, by_kernel, graphs = {}, {}, {}, {}
     for b in BATCH_SIZES:
         cfg = trainer.TrainConfig(tiling=tiling, batch_views=b)
@@ -2848,7 +2962,7 @@ def phase9_nccl(scene, budget):
     if not all(row["captured_vs_eager_bits_equal"].values()):
         fail(f"phase 9 (a): the captured mesh step differs from the eager one: "
              f"{row['captured_vs_eager_bits_equal']}")
-    want = {k: TRAIN_STEPS * n for k, n in TRAIN_STEP_LAUNCHES.items()}
+    want = {k: TRAIN_STEPS * n for k, n in MESH_STEP_LAUNCHES.items()}
     if launched_kernels(launches) != want or row["captures"] != 1:
         fail(f"phase 9 (a): {TRAIN_STEPS} replays launched {launches} (want {want}), "
              f"{row['captures']} captures")
@@ -3321,17 +3435,21 @@ def phase9_cli_nccl(work: Path, scene_dir: Path, loop_run: Path):
 
 # phase 10: the measurement entry points, each run as a user runs it
 BENCH_BUDGET = 2_138_112  # BENCH_PAIRS + 2%, rounded up to 8192: the bench's budget
+# the loss runs as the photometric kernels: three forward, one backward
 BENCH_STEP_LAUNCHES = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
-                       "segment_sum": 1, "blur": 2}
-# a train step, one process or the mesh's, also updates with Adam's kernel
+                       "segment_sum": 1, "photometric": 4}
+# a train step also updates with Adam's kernel
 TRAIN_STEP_LAUNCHES = dict(BENCH_STEP_LAUNCHES, adam=1)
+# the mesh's step keeps its band-local loss on K5 (forward and VJP)
+MESH_STEP_LAUNCHES = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
+                      "segment_sum": 1, "blur": 2, "adam": 1}
 BATCHED_VIEWS = [1, 2, 4, 8]
 # the entry points' work recorded in this process, in the CLIs' shapes: the
-# bench's two rungs, its parity rung (an L1 loss: no K5) and banded check
-# (512x384, 100k splats), and bench_batched's largest batch
+# bench's two rungs, its parity rung (an L1 loss) and banded check
+# (512x384, 100k splats), and bench_batched's largest batch; their losses
+# run the photometric kernels, so K5 need not be called on any
 ENTRY_PATHS = ("small-540p", "headline-1080p", "parity-512x384", "banded-512x384",
                "batched-B8")
-NO_SSIM = ("parity-512x384",)
 
 
 def entry_kernel_errs() -> dict:
@@ -3384,7 +3502,7 @@ def entry_kernel_errs() -> dict:
         seconds[name] = time.perf_counter() - t0
     for name, e in errs.items():
         bad = {k: e[k] for k, tol in BAND_TOL.items() if not (
-            e[k]["calls"] >= (0 if name in NO_SSIM else 2 if k == "blur" else 1)
+            e[k]["calls"] >= (0 if k == "blur" else 1)
             and e[k]["err"] <= tol)}
         if bad:
             fail(f"phase 10: {name}'s kernels against their plain versions: {bad}")
@@ -3808,7 +3926,7 @@ def phase11_steps(work: Path) -> dict:
         rows = [dict(r[shape], rank=r["rank"]) for r in ranks]
         for r in rows:
             print(f"mesh4_rank {shape}: " + json.dumps(r), flush=True)
-        want = {k: TRAIN_STEPS * n for k, n in TRAIN_STEP_LAUNCHES.items()}
+        want = {k: TRAIN_STEPS * n for k, n in MESH_STEP_LAUNCHES.items()}
         bad = {r["rank"]: r for r in rows if not (
             all(r["captured_vs_eager_bits_equal"].values()) and r["scene_digests_equal"]
             and r["captures"] == 1 and r["graph"]["captured"]["kernel_launches"] == want
@@ -4165,6 +4283,7 @@ def main() -> int:
         kernels += step_kernels
         blur_windows = timed("12", phase12, scene, budget)
         kernels.append(timed("13", phase13))
+        kernels.append(timed("14", phase14))
         batched_launches = timed("8", phase8, scene, budget)
         mesh_launches = {"1x1": timed("9a", phase9_nccl, scene, budget)}
         del scene

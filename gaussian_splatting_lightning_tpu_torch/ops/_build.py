@@ -8,8 +8,9 @@ only, into ``_build/`` beside ``csrc/`` (listed in ``.gitignore``), keyed by a
 hash of the source and the flags. A missing ``nvcc`` is an error: there is
 no fallback for a CUDA tensor.
 
-``launches`` counts kernel launches by kernel name; each wrapper adds one
-where it launches its kernel and nowhere else. The span marks
+``launches`` counts kernel launches by kernel name; each wrapper adds one a
+launch where it launches its kernels (a C entry may launch several: the
+photometric loss's forward launches three) and nowhere else. The span marks
 (``csrc/span_mark.cu``, launched by ``utils/runtime.mark`` only while spans
 are on) are built and loaded here too, but are no kernel of the port's and
 are not counted.
@@ -40,6 +41,7 @@ SOURCES = {
     "preprocess_fwd": "preprocess.cu",
     "preprocess_bwd": "preprocess.cu",
     "adam": "adam.cu",
+    "photometric": "photometric.cu",
 }
 # libraries built and loaded like the kernels, but not counted in ``launches``
 LIBRARIES = dict(SOURCES, span_mark="span_mark.cu")
@@ -49,29 +51,33 @@ NVCC_FLAGS = (
 )
 # K1's, the preprocess pair's and Adam's whole arithmetic must round like the
 # plain versions' separate PyTorch ops; K2, K3 and K5 round what must match
-# explicitly (__fmul_rn & co.) and let the rest contract to FMA; K4 only adds
+# explicitly (__fmul_rn & co.) and let the rest contract to FMA; K4 only adds;
+# the photometric loss decides no threshold and contracts freely
 EXTRA_FLAGS = {"expand_pairs": ("--fmad=false",), "composite_fwd": (),
                "composite_bwd": (), "segment_sum": (), "blur": (), "span_mark": (),
                "preprocess_fwd": ("--fmad=false",), "preprocess_bwd": ("--fmad=false",),
-               "adam": ("--fmad=false",)}
+               "adam": ("--fmad=false",), "photometric": ()}
 
 
 def nvcc_flags(name: str) -> tuple:
     return NVCC_FLAGS + EXTRA_FLAGS[name]
 
-# C entry of each kernel: (symbol, argtypes); pointers and the stream are
-# c_void_p, or ctypes would pass them as 32-bit ints
+# C entries of each kernel's library: (symbol, argtypes) pairs; pointers and
+# the stream are c_void_p, or ctypes would pass them as 32-bit ints
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = {
-    "expand_pairs": ("gs_expand_pairs", [_VP] * 5 + [_I] * 7 + [_VP] * 3),
-    "composite_fwd": ("gs_composite_fwd", [_VP] * 6 + [_I] * 9 + [_VP]),
-    "composite_bwd": ("gs_composite_bwd", [_VP] * 8 + [_I] * 10 + [_VP]),
-    "segment_sum": ("gs_segment_sum", [_VP] * 5 + [_I] * 3 + [_VP]),
-    "blur": ("gs_blur_valid", [_VP] * 2 + [_I] * 5 + [_VP] * 2),
-    "span_mark": ("gs_span_mark", [_I, _VP]),
-    "preprocess_fwd": ("gs_preprocess_fwd", [_VP] * 20 + [_I] * 10 + [_F] * 2 + [_VP]),
-    "preprocess_bwd": ("gs_preprocess_bwd", [_VP] * 20 + [_I] * 7 + [_F] + [_VP]),
-    "adam": ("gs_adam_update", [_VP, _I, _VP, _I, _VP] + [_F] * 5 + [_VP]),
+    "expand_pairs": [("gs_expand_pairs", [_VP] * 5 + [_I] * 7 + [_VP] * 3)],
+    "composite_fwd": [("gs_composite_fwd", [_VP] * 6 + [_I] * 9 + [_VP])],
+    "composite_bwd": [("gs_composite_bwd", [_VP] * 8 + [_I] * 10 + [_VP])],
+    "segment_sum": [("gs_segment_sum", [_VP] * 5 + [_I] * 3 + [_VP])],
+    "blur": [("gs_blur_valid", [_VP] * 2 + [_I] * 5 + [_VP] * 2)],
+    "span_mark": [("gs_span_mark", [_I, _VP])],
+    "preprocess_fwd": [("gs_preprocess_fwd", [_VP] * 20 + [_I] * 10 + [_F] * 2 + [_VP])],
+    "preprocess_bwd": [("gs_preprocess_bwd", [_VP] * 20 + [_I] * 7 + [_F] + [_VP])],
+    "adam": [("gs_adam_update", [_VP, _I, _VP, _I, _VP] + [_F] * 5 + [_VP])],
+    "photometric": [("gs_photometric_fwd", [_VP] * 10 + [_I] * 8 + [_F] * 2 + [_VP] * 2),
+                    ("gs_photometric_bwd", [_VP] * 8 + [_I] * 4 + [_VP] + [_I] * 7 + [_F] * 2
+                     + [_VP] * 2)],
 }
 
 launches = {name: 0 for name in SOURCES}
@@ -150,9 +156,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library(name)))
         lib.gs_error_string.restype = ctypes.c_char_p
         lib.gs_error_string.argtypes = [ctypes.c_int]
-        symbol, argtypes = ENTRIES[name]
-        getattr(lib, symbol).restype = ctypes.c_int
-        getattr(lib, symbol).argtypes = argtypes
+        for symbol, argtypes in ENTRIES[name]:
+            getattr(lib, symbol).restype = ctypes.c_int
+            getattr(lib, symbol).argtypes = argtypes
         _libs[name] = lib
     return lib
 
@@ -164,10 +170,11 @@ def raise_for(lib: ctypes.CDLL, name: str, rc: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
 
 
-def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
-    """Raise if a C entry returned a CUDA error, else count the launch."""
+def check(lib: ctypes.CDLL, name: str, rc: int, kernels: int = 1) -> None:
+    """Raise if a C entry returned a CUDA error, else count its ``kernels``
+    launches."""
     raise_for(lib, name, rc)
-    launches[name] += 1
+    launches[name] += kernels
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, device) -> None:

@@ -6,7 +6,8 @@ Counterpart of the JAX repo's ``bench.py``: the same scene
 exact host estimate plus 2%, rounded up to 8192) and timed work: the
 gradient of ``photometric_loss(image, target, 0.2)`` with respect to the
 five activated tensors through ``ops/rasterize.rasterize``, which launches
-K1-K4 once and K5 twice per step. The dropped-pair count comes back with the
+K1-K4 once per step, and the loss's kernels (``ops/photometric.py``, three
+forward and one backward). The dropped-pair count comes back with the
 gradient. On the card the gradient replays a captured graph
 (``utils/graph.py``), as the JAX bench jits it. Timed by CUDA events and a
 host wall over ``iters`` steps after ``warmup``; ``compile_s`` is JAX's

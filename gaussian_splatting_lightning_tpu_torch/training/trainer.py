@@ -3,8 +3,9 @@
 Counterpart of ``gaussian_splatting_lightning_tpu/training/trainer.py`` on
 one device. One ``train_step`` is render -> loss -> backward -> Adam ->
 densification statistics, PyTorch around the kernels (the preprocess
-pair's forward, K1 and K2 in the render, K5 in the loss and its backward,
-K3, K4 and the preprocess pair's backward in the render's backward). On the
+pair's forward, K1 and K2 in the render, the photometric loss's kernels
+(``ops/photometric.py``) in the loss and its backward, K3, K4 and the
+preprocess pair's backward in the render's backward). On the
 card the step, the eval step, the serving render (``make_render``) and the
 exposure update (``training/exposure.py``) each replay a captured CUDA
 graph (``utils/graph.py``), the counterpart of the JAX package's

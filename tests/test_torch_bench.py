@@ -156,7 +156,7 @@ def test_run_and_parity_gate_on_the_cpu():
     # CPU tensors run the plain versions, which count no launch
     assert set(res["launches"]) == {"expand_pairs", "composite_fwd", "composite_bwd",
                                     "segment_sum", "blur", "preprocess_fwd",
-                                    "preprocess_bwd", "adam"}
+                                    "preprocess_bwd", "adam", "photometric"}
     assert not any(res["launches"].values())
     row = bench.parity_gate(W, H, N, device="cpu", iters=1)["routing_f32"]
     assert row["dropped_pairs"] == 0 and row["tile_overflow"] == 0

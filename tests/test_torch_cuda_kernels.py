@@ -21,7 +21,13 @@ every parameter and moment, in place (``adam_update_``) and through the
 copying ``adam_update``, dense and sparse, at
 1,001 and at 1M rows (ragged tails) at SH degree 3 and 0, with one gradient
 a group and with the mesh's column slices of one (rows, 59) table, and over
-two replays of a captured graph with different scalars. These tests need an NVIDIA
+two replays of a captured graph with different scalars. The photometric
+loss's kernels (``csrc/photometric.cu``) against the composition of
+``training/loss.py`` on the card: the four logs within 1e-6 relatively, the
+gradient within 1e-5 of its largest |element|, the same bits on a second
+call, three launches forward and one backward; at 1080p, at an odd size, on
+a non-contiguous 540-row slice and on stacks of two views (per view and
+joint); smooth images against the float64 composition. These tests need an NVIDIA
 GPU and ``nvcc``; elsewhere they skip with a reason. On the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -353,6 +359,99 @@ def test_ssim_window_on_the_card_equals_plain():
         ssim.ssim(a, b, window_size=17)
     with pytest.raises(ValueError, match="odd"):
         ssim.ssim(a, b, window_size=10)
+
+
+# The photometric loss's kernels (csrc/photometric.cu) against the
+# composition on the card (``plain=True``: the same functions with the
+# blur's plain version). Values within 1e-6 relatively: the sums run in
+# another order, the rest is the same arithmetic. The gradient within 1e-5
+# of the composition's largest |element|: the kernel forms the SSIM map's
+# derivatives as quotients that round apart from autograd's chain (on random
+# images both lie ~2e-7 of it from the float64 composition, see
+# tests/test_torch_loss.py). A fifth of the pixels equal between pred and
+# target (sign(0)). Cases: (shape, rows of a slice or None, per view).
+PHOT_CASES = {"1080p": ((3, 1080, 1920), None, False),
+              "odd_301x517": ((3, 301, 517), None, False),
+              "slice_540_rows": ((3, 1080, 1920), 540, False),
+              "stack2_per_view": ((2, 3, 270, 481), None, True),
+              "stack2_joint": ((2, 3, 270, 481), None, False)}
+PHOT_LOGS = ("loss", "recon", "ssim", "psnr")
+
+
+def _phot_images(shape, rows, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pred = torch.rand(shape, device="cuda", generator=gen)
+    target = torch.rand(shape, device="cuda", generator=gen)
+    pred = torch.where(torch.rand(shape, device="cuda", generator=gen) < 0.2, target, pred)
+    if rows is not None:  # a non-contiguous slice, as the half-batch fault passes
+        pred, target = pred[..., :rows, :], target[..., :rows, :]
+    return pred, target
+
+
+def _phot_run(pred, target, per_view, plain):
+    """The four logs and pred's gradient of the loss (summed over views)."""
+    from gaussian_splatting_lightning_tpu_torch.training.loss import (
+        photometric_loss,
+        photometric_losses,
+    )
+
+    x = pred.detach().requires_grad_()
+    _, logs = (photometric_losses if per_view else photometric_loss)(x, target, 0.2, plain)
+    (grad,) = torch.autograd.grad(logs["loss"].sum(), x)
+    return [logs[k].detach() for k in PHOT_LOGS], grad
+
+
+@pytest.mark.parametrize("case", list(PHOT_CASES))
+def test_photometric_kernels_match_the_composition(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    shape, rows, per_view = PHOT_CASES[case]
+    pred, target = _phot_images(shape, rows, seed=len(case))
+    assert rows is None or not pred.is_contiguous()
+    _build.reset_launch_counts()
+    got, grad = _phot_run(pred, target, per_view, False)
+    torch.cuda.synchronize()
+    # three launches forward, one backward, and no K5
+    assert dict(_build.launches) == dict.fromkeys(_build.SOURCES, 0) | {"photometric": 4}
+    again, grad_again = _phot_run(pred, target, per_view, False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(grad, grad_again)
+    _build.reset_launch_counts()
+    want, want_grad = _phot_run(pred, target, per_view, True)
+    torch.cuda.synchronize()
+    assert not any(_build.launches.values())
+    for name, a, b in zip(PHOT_LOGS, got, want):
+        assert a.shape == b.shape == ((shape[0],) if per_view else ()), name
+        rel = float(((a - b).abs() / b.abs()).max())
+        assert rel <= 1e-6, (name, rel)
+    assert grad.shape == want_grad.shape == pred.shape
+    scale = float(want_grad.abs().max())
+    assert float((grad - want_grad).abs().max()) <= 1e-5 * scale
+
+
+def test_photometric_kernels_on_smooth_images_as_close_as_the_composition():
+    """Smooth 1080p images, where each variance b(y^2) - b(y)^2 cancels most
+    of its digits and the float32 composition itself lies ~2.5e-5 of the
+    largest gradient from the float64 one: the kernels' values and gradient
+    no further from the float64 composition than twice the float32
+    composition, or 1e-6 of the largest |value|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    yy = torch.arange(1080, device="cuda", dtype=torch.float64)[:, None]
+    xx = torch.arange(1920, device="cuda", dtype=torch.float64)[None, :]
+    base = 0.5 + 0.3 * torch.sin(yy / 200 + xx / 300) * torch.cos(xx / 500)
+    pred64 = torch.stack([base, base * 0.9, base * 0.8 + 0.1])
+    target64 = pred64 + 0.02 * torch.cos(yy / 100 - xx / 150)
+    pred, target = pred64.float(), target64.float()
+    got, grad = _phot_run(pred, target, False, False)
+    want, want_grad = _phot_run(pred, target, False, True)
+    truth, truth_grad = _phot_run(pred64, target64, False, True)
+    for name, a, b, t in zip(PHOT_LOGS, got, want, truth):
+        bound = max(2 * abs(float(b) - float(t)), 1e-6 * abs(float(t)))
+        assert abs(float(a) - float(t)) <= bound, (name, float(a), float(b), float(t))
+    own = float((want_grad.double() - truth_grad).abs().max())
+    err = float((grad.double() - truth_grad).abs().max())
+    assert err <= max(2 * own, 1e-6 * float(truth_grad.abs().max())), (err, own)
 
 
 @pytest.mark.parametrize("block", [16, 32])

@@ -10,8 +10,11 @@
   autograd of gathers and ``index_add_`` add with atomics, so the last bit
   may differ from run to run), the densification counts exact.
 - A replay adds the launches its capture recorded (K1-K4, the
-  preprocess pair and Adam once, K5 twice a step; the mesh's step no
-  preprocess kernel); a capture launches nothing of its own.
+  preprocess pair and Adam once, the photometric loss's kernels four times
+  a step; the mesh's step no preprocess kernel, and K5 twice where the
+  photometric kernels would run); a capture launches nothing of its own.
+- The photometric loss's kernels, forward and backward, captured and
+  replayed twice give the eager call's bits, one view and a stack of two.
 - A function that reads a value back to the host cannot be captured: the
   capture raises.
 - The ``Trainer`` on the captured step: a NaN loss rolls back to the last
@@ -73,12 +76,15 @@ pytestmark = pytest.mark.cuda
 PKG = "gaussian_splatting_lightning_tpu_torch"
 W, H = 128, 96
 TILING = TilingConfig(max_pairs=1 << 16, block=32)
+# the loss runs as its kernels (three forward, one backward), not K5
 STEP_KERNELS = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
-                "segment_sum": 1, "blur": 2, "preprocess_fwd": 1, "preprocess_bwd": 1,
-                "adam": 1}
-# the mesh's step composes its sharded preprocess: no preprocess kernel
-MESH_STEP_KERNELS = {k: n for k, n in STEP_KERNELS.items() if not k.startswith("preprocess")}
-MESH_LAUNCHES = dict(MESH_STEP_KERNELS, preprocess_fwd=0, preprocess_bwd=0)
+                "segment_sum": 1, "blur": 0, "preprocess_fwd": 1, "preprocess_bwd": 1,
+                "adam": 1, "photometric": 4}
+# the mesh's step composes its sharded preprocess (no preprocess kernel) and
+# its band-local loss (K5 forward and VJP, no photometric kernel)
+MESH_STEP_KERNELS = {"expand_pairs": 1, "composite_fwd": 1, "composite_bwd": 1,
+                     "segment_sum": 1, "blur": 2, "adam": 1}
+MESH_LAUNCHES = {k: MESH_STEP_KERNELS.get(k, 0) for k in STEP_KERNELS}
 
 
 @pytest.fixture(scope="module")
@@ -207,6 +213,43 @@ def test_captured_train_step_equals_eager(scene, case):
     # the step's scene is the graph's own buffers, updated in place
     buf = steps["captured"].captured.inputs
     assert cap["scene"].params.xyz.data_ptr() == buf[0].data_ptr()
+
+
+@pytest.mark.parametrize("views", [0, 2], ids=["one_view", "two_views"])
+def test_captured_photometric_loss_equals_eager(scene, views):
+    """The loss's kernels sum in a fixed order with no atomics: a captured
+    forward and backward replays the eager call's outputs and gradient bit
+    for bit; an eager call counts four launches."""
+    from gaussian_splatting_lightning_tpu_torch.training.loss import (
+        photometric_loss,
+        photometric_losses,
+    )
+
+    fn = photometric_losses if views else photometric_loss
+    shape = (views, 3, 1080, 1920) if views else (3, 1080, 1920)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    pred = torch.rand(shape, device="cuda", generator=gen)
+    target = torch.rand(shape, device="cuda", generator=gen)
+
+    def run(x):
+        x = x.detach().requires_grad_()
+        loss, logs = fn(x, target)
+        (grad,) = torch.autograd.grad(loss.sum(), x)
+        return [logs[k].detach() for k in ("loss", "recon", "ssim", "psnr")] + [grad]
+
+    want = run(pred)  # eager; loads the library before the capture
+    torch.cuda.synchronize()
+    static = pred.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run(static)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _build.reset_launch_counts()
+    run(pred)
+    assert _build.launches["photometric"] == 4
 
 
 def test_capture_failure_raises(scene):

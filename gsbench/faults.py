@@ -2,27 +2,35 @@
 control and the planted faults.
 
     python3 gsbench/faults.py --workload <cell> --seeds 11,12,13 --seconds 2 \
-        --what control,unchanged,half_batch,altered_image
+        --what control,unchanged,half_batch,altered_image[,no_exchange][,none]
 
 ``control`` is the reference put in the program's place and computed in
 bfloat16, the nearest precision below the configuration's float32, held to
-the float32 reference. The faults are planted in the program for the run
-(its module attributes replaced in this process, no file changed) and the
-cell runs as the benchmark runs it, with a short window:
+the float32 reference (on one card, for every cell). The faults are planted
+in the program for the run (its module attributes replaced in this process,
+or in each rank's, no file changed) and the cell runs as the benchmark runs
+it, with a short window:
 
 - ``unchanged``: the step returns its state unchanged (Adam writes nothing);
-- ``half_batch``: one view a step, the loss takes the mean over the top
-  half of the image's rows and leaves the rest out;
-- ``altered_image``: the rendered image is raised by 0.01 where it is made.
+- ``half_batch``: half of the batch left out, the mean taken over the rest:
+  on one process the loss over the top half of the image's rows; on a mesh
+  the second half of the view groups' loss left out and the first half's
+  doubled;
+- ``altered_image``: the rendered image is raised by 0.01 where it is made;
+- ``no_exchange`` (a mesh only): the sum over the ranks that the gradients'
+  reduce-scatter makes is left out, each rank keeping its own part;
+- ``none``: no fault, a sound run (the lower readings).
 
 The benchmark's own runs never run this. Prints one JSON line per seed and
-fault with the compared numbers.
+fault with the compared numbers. On a mesh the ranks run every seed and
+fault in one job, and the reference runs once a seed, on rank 0's card.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import sys
 import time
@@ -36,6 +44,8 @@ if str(ROOT) not in sys.path:
 @contextlib.contextmanager
 def planted(fault: str):
     """The program with ``fault`` in place, for the duration of the block."""
+    from gaussian_splatting_lightning_tpu_torch.parallel import mesh as mesh_mod
+    from gaussian_splatting_lightning_tpu_torch.parallel import shard
     from gaussian_splatting_lightning_tpu_torch.training import optimizer
     from gaussian_splatting_lightning_tpu_torch.training import trainer as tr
 
@@ -54,6 +64,7 @@ def planted(fault: str):
 
         patch(tr, "adam_update", adam_update)
         patch(tr, "adam_update_", adam_update_)
+        patch(shard, "adam_update_", adam_update_)
     elif fault == "half_batch":
         def half(fn):
             def loss(pred, target, *a, **k):
@@ -61,16 +72,36 @@ def planted(fault: str):
                 return fn(pred[..., :h, :], target[..., :h, :], *a, **k)
             return loss
 
+        band_loss = shard._band_loss_partials
+
+        def band_loss_partials(bands, images, height, mesh, *a, **k):
+            kept = 2.0 * (mesh.axis_index("view") < mesh.axis_size("view") // 2)
+            return tuple(kept * p for p in band_loss(bands, images, height, mesh, *a, **k))
+
         patch(tr, "photometric_loss", half(tr.photometric_loss))
         patch(tr, "photometric_losses", half(tr.photometric_losses))
+        patch(shard, "_band_loss_partials", band_loss_partials)
     elif fault == "altered_image":
-        render = tr.render_scene
+        render, render_band = tr.render_scene, shard._render_band
 
         def render_scene(*a, **k):
             out, stats = render(*a, **k)
             return type(out)(out.image + 0.01, out.radii, out.depth), stats
 
+        def _render_band(*a, **k):
+            out, *rest = render_band(*a, **k)
+            return (type(out)(out.image + 0.01, out.radii, out.depth), *rest)
+
         patch(tr, "render_scene", render_scene)
+        patch(shard, "_render_band", _render_band)
+    elif fault == "no_exchange":
+        def reduce_scatter(self, t, axis, dim=0):
+            n, i = self.axis_size(axis), self.axis_index(axis)
+            src = t.movedim(dim, 0)
+            rows = src.shape[0] // n
+            return src[i * rows:(i + 1) * rows].movedim(0, dim).contiguous().clone()
+
+        patch(mesh_mod.Mesh, "reduce_scatter", reduce_scatter)
     elif fault != "none":
         raise ValueError(f"unknown fault {fault!r}")
     try:
@@ -104,6 +135,49 @@ def fault_run(spec: dict, seed: int, seconds: float, fault: str, device) -> tupl
     return res["checks"], res["readings"]
 
 
+def _row(what: str, seed: int, checks: dict, readings: dict, seconds: float) -> dict:
+    other = {k: v for k, v in readings.items() if k.startswith("step_gap")}
+    return {"what": what, "seed": seed, "checks": checks, "other": other, "s": seconds}
+
+
+def mesh_job(ranks, spec: dict, seeds: list, seconds: float, faults: list) -> None:
+    """On each rank of a mesh: every seed's faults, each planted in the
+    program and run as the benchmark runs it; then rank 0 reads the
+    reference once and compares each. Rank 0 prints each row on standard
+    error and hands the rows back."""
+    import torch
+
+    from gsbench import cell
+
+    dev = ranks.mesh.device
+    config, mix = spec["config"], spec["traffic"]
+    rows = []
+    for seed in seeds:
+        got = {}
+        for what in faults:
+            t0 = time.perf_counter()
+            with planted(what):
+                _, readings, _ = cell.program(spec, seed, seconds, False, time.time(), dev,
+                                              ranks)
+            got[what] = (readings, time.perf_counter() - t0)
+            gc.collect()  # the dropped trainer's graph and pool
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if ranks.rank == 0:
+            want = cell.reference_readings(cell.make_inputs(config, mix, seed, dev), config,
+                                           mix, seed, torch.float32)
+            for what, (readings, s) in got.items():
+                res = cell.check(spec, seed, readings, dev, want=want)
+                row = _row(what, seed, res["checks"], res["readings"], s)
+                print(json.dumps(row), file=sys.stderr, flush=True)
+                rows.append(row)
+            del want
+        ranks.gather(None)  # the others wait for rank 0's reference
+        ranks.beat(f"seed {seed}")
+    if ranks.rank == 0:
+        ranks.hand_back(rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -114,13 +188,21 @@ def main(argv=None) -> int:
 
     import torch
 
-    from gsbench import manifest
+    from gsbench import manifest, ranks
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = manifest.cell(manifest.load(ROOT), args.workload)
     seeds = [int(s) for s in args.seeds.split(",")]
-    for what in args.what.split(","):
+    whats = args.what.split(",")
+    if "mesh" in spec["config"]:
+        planted_faults = [w for w in whats if w != "control"]
+        if planted_faults:
+            for row in ranks.launch(spec["chips"], spec["config"]["mesh"], mesh_job,
+                                    (spec, seeds, args.seconds, planted_faults)):
+                print(json.dumps(row), flush=True)
+        whats = ["control"] if "control" in whats else []
+    for what in whats:
         for seed in seeds:
             t0 = time.perf_counter()
             if what == "control":
@@ -128,9 +210,8 @@ def main(argv=None) -> int:
                 torch.cuda.empty_cache()
             else:
                 checks, readings = fault_run(spec, seed, args.seconds, what, "cuda")
-            other = {k: v for k, v in readings.items() if k.startswith("step_gap")}
-            print(json.dumps({"what": what, "seed": seed, "checks": checks, "other": other,
-                              "s": time.perf_counter() - t0}), flush=True)
+            print(json.dumps(_row(what, seed, checks, readings, time.perf_counter() - t0)),
+                  flush=True)
     return 0
 
 

@@ -5,7 +5,10 @@ the limits of its check); its configuration ``configs/<config>.json``; its traff
 ``mixes/<traffic>.json``; a per-layer metric ``<metric>`` the reader
 ``metrics/<metric>.py``, whose ``read(ctx)`` returns the metric's value or
 None when the run gave it nothing to read. Adding a cell, a configuration,
-a mix or a metric is adding such files and entries.
+a mix or a metric is adding such files and entries. A configuration may
+also name its trainer options, its plain reference and a mesh (``cell.py``);
+a cell of a configuration with a mesh ``{"view": v, "tile": t}`` asks for
+``v * t`` chips.
 """
 
 from __future__ import annotations
@@ -45,6 +48,15 @@ def cell(manifest: dict, name: str, here: Path = HERE) -> dict:
     spec = _json(here / "workloads" / f"{name}.json")
     if spec["kind"] not in KINDS:
         raise ValueError(f"workload {name!r}: unknown kind {spec['kind']!r}")
+    config = dict(_json(here.parent / config_entry["file"]), name=entry["config"])
+    mesh = config.get("mesh")
+    if mesh is not None:
+        if set(mesh) != {"view", "tile"}:
+            raise ValueError(f"configuration {entry['config']!r}: mesh {mesh!r} is not "
+                             "{\"view\": v, \"tile\": t}")
+        if mesh["view"] * mesh["tile"] != entry["chips"]:
+            raise ValueError(f"workload {name!r}: chips {entry['chips']} is not the "
+                             f"{mesh['view']} x {mesh['tile']} ranks of its mesh")
     e2e = [m for m in manifest["end_to_end"] if applies(m, name, set())]
     reported = {m["name"] for m in e2e}
     return {
@@ -52,7 +64,7 @@ def cell(manifest: dict, name: str, here: Path = HERE) -> dict:
         "chips": entry["chips"],
         "kind": spec["kind"],
         "limits": spec["limits"],
-        "config": dict(_json(here.parent / config_entry["file"]), name=entry["config"]),
+        "config": config,
         "traffic": dict(_json(here / "mixes" / f"{entry['traffic']}.json"),
                         name=entry["traffic"]),
         "end_to_end": e2e,

@@ -1,5 +1,6 @@
 """K2's least time for the traced steps' contributing evaluations
-(``counts.k2_least_s``) over its device time, in percent."""
+(``counts.k2_least_s``) over its device time, in percent: on a mesh rank
+0's, its view group's views and its band's rows of them."""
 
 from gsbench import counts
 
@@ -11,6 +12,6 @@ def read(ctx):
     if ms <= 0:
         return None
     s = ctx.trace.steps
-    least = counts.k2_least_s(ctx.work["kept"] / s, ctx.work["visible"] / s,
-                              ctx.pixels_per_step)
+    own = ctx.work["rank0"]  # the traced rank's share: the whole on one card
+    least = counts.k2_least_s(own["kept"] / s, own["visible"] / s, own["pixels"] / s)
     return 100.0 * least * 1e3 / ms

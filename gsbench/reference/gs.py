@@ -26,6 +26,27 @@ blocks at a time, so that the memory of one group is bounded; the gradient
 is taken group by group against the loss's gradient of the image, then
 through the projection by autograd. Every tensor is in ``dtype`` (float32;
 the precision control runs it in bfloat16).
+
+A configuration names its plain reference (``"reference"``, by default this
+module), and the harness (``cell.py``, ``faults.py``) uses nothing of it but
+this interface, which another reference provides alike:
+
+- ``LEAVES``: the names of the raw parameters, the program's as well;
+- ``W_SSIM``: the SSIM term's weight in the loss;
+- ``project(p, alive, cam, width, height, degree)`` -> a record with
+  ``p_pix`` (N, 2), ``reach`` (N,) in px and ``visible`` (N,) bool, which
+  the pair budget reads, and whatever ``render`` takes;
+- ``block_rect(p_pix, radius, grid_x, grid_y, block)`` -> each splat's
+  half-open block ranges (x0, x1, y0, y1), for the pair budget;
+- ``render(projected, width, height, background, pixel_rows=None)`` ->
+  (image, pairs, contributing evaluations), the last for the work counts:
+  with ``pixel_rows`` (first, end), multiples of 32, only those of the
+  pixels in these rows (a mesh rank's band);
+- ``train(p, alive, steps, width, height, degree, first_step, extent)`` ->
+  (step records with ``loss`` and ``grads``, the parameters after each
+  step, the statistics ``max_radius``, ``grad_sum`` and ``count`` after the
+  first step, each element's first step with a non-zero gradient), as
+  ``train`` below documents.
 """
 
 from __future__ import annotations
@@ -151,8 +172,11 @@ def project(p: dict, alive, cam: dict, width: int, height: int, degree: int,
                          ((ndc[:, 1] + 1.0) * height - 1.0) * 0.5], -1)
     tanx, tany = float(cam["tanfovx"]), float(cam["tanfovy"])
     fx, fy = width * 0.5 / tanx, height * 0.5 / tany
-    zc = pv[:, 2]
-    zc = torch.where(zc.abs() > 1e-12, zc, torch.full_like(zc, 1e-12))
+    # a row at or behind the near plane is never visible: its depth is kept
+    # out of the Jacobian, whose 1 / z at z = 0 would carry NaN into every
+    # gradient through the rows' zero cotangents
+    front = pv[:, 2] > NEAR_Z
+    zc = torch.where(front, pv[:, 2], torch.ones_like(pv[:, 2]))
     tx = torch.clamp(pv[:, 0] / zc, -1.3 * tanx, 1.3 * tanx) * zc
     ty = torch.clamp(pv[:, 1] / zc, -1.3 * tany, 1.3 * tany) * zc
     zero = torch.zeros_like(zc)
@@ -164,7 +188,7 @@ def project(p: dict, alive, cam: dict, width: int, height: int, degree: int,
     b = cov2[:, 0, 1]
     c = cov2[:, 1, 1] + DILATION
     det = a * c - b * b
-    visible = (pv[:, 2] > NEAR_Z) & (det != 0) & alive
+    visible = front & (det != 0) & alive
     inv = 1.0 / torch.clamp_min(det, 1e-5)
     conic = torch.stack([c * inv, -b * inv, a * inv], -1)
     mid = 0.5 * (a + c)
@@ -235,8 +259,8 @@ def _groups(pairs: Pairs):
 
 
 def _composite_group(blocks, width_p: int, pairs: Pairs, feats, bg, gx: int):
-    """Colour (G, pix, 3) of a group of blocks and its evaluations kept
-    (alpha above 1/255, T above 1e-4)."""
+    """Colour (G, pix, 3) of a group of blocks and each block's evaluations
+    kept (alpha above 1/255, T above 1e-4), (G,)."""
     p_pix, conic, opacity, rgb = feats
     dev = p_pix.device
     j = torch.arange(width_p, device=dev)
@@ -260,7 +284,7 @@ def _composite_group(blocks, width_p: int, pairs: Pairs, feats, bg, gx: int):
     live = t_ex > T_MIN
     w = torch.where(live, alpha * t_ex, 0.0)
     colour = w @ rgb[s] + t_in[..., -1:] * bg
-    return colour, (keep & live).sum()
+    return colour, (keep & live).sum((1, 2))
 
 
 def _to_image(tiles: torch.Tensor, pairs: Pairs, width: int, height: int):
@@ -278,8 +302,10 @@ def _to_blocks(img: torch.Tensor, pairs: Pairs) -> torch.Tensor:
         gy * gx, BLOCK * BLOCK, 3)
 
 
-def render(pr: Projected, width: int, height: int, bg):
-    """(image (3, H, W), pairs, kept evaluations) without autograd."""
+def render(pr: Projected, width: int, height: int, bg, pixel_rows=None):
+    """(image (3, H, W), pairs, kept evaluations) without autograd; with
+    ``pixel_rows`` (first, end), block multiples, the evaluations kept in
+    the blocks of those rows alone."""
     pairs = make_pairs(pr, width, height)
     feats = tuple(x.detach() for x in (pr.p_pix, pr.conic, pr.opacity, pr.rgb))
     bg = bg.to(pr.p_pix.dtype)
@@ -289,7 +315,10 @@ def render(pr: Projected, width: int, height: int, bg):
         for blocks, width_p in _groups(pairs):
             colour, k = _composite_group(blocks, width_p, pairs, feats, bg, pairs.grid_x)
             tiles[blocks] = colour
-            kept += int(k)
+            if pixel_rows is not None:
+                top = blocks // pairs.grid_x * BLOCK
+                k = k[(top >= pixel_rows[0]) & (top < pixel_rows[1])]
+            kept += int(k.sum())
     return _to_image(tiles, pairs, width, height), pairs, kept
 
 

@@ -1,8 +1,9 @@
 """The check itself: a sound run of a cell at a tiny size on the CPU passes
 its limits, and each fault the cell can have, planted under the harness,
-and the precision control fail them. The readings at the cells' own sizes are taken on the chip
-(``gsbench/faults.py``); ``test_control_fails_at_the_cell_size`` is that
-run for the control."""
+and the precision control fail them (a mesh cell's faults, on four ranks:
+``test_gsbench_ranks.py``). The readings at the cells' own sizes are taken
+on the chip (``gsbench/faults.py``); ``test_control_fails_at_the_cell_size``
+is that run for the control."""
 
 import time
 
@@ -34,8 +35,9 @@ def test_each_fault_is_caught(fault):
     assert _single(tiny_spec(), fault)["correct"] is False
 
 
-def test_the_precision_control_is_caught():
-    spec = tiny_spec()
+@pytest.mark.parametrize("cell_name", ["train-1080p-1m", "train-1080p-1m-mesh2x2"])
+def test_the_precision_control_is_caught(cell_name):
+    spec = tiny_spec(cell_name)
     assert not _correct(spec, faults.control(spec, 6, "cpu")[0])
 
 

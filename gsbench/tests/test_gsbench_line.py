@@ -32,6 +32,10 @@ def _trace(steps=2):
         _Event("void expand_pairs_kernel(int const*)", 4000, 500, True),
         _Event("void cub::DeviceRadixSortOnesweepKernel<...>", 4500, 500, True),
         _Event("ncclDevKernel_AllReduce_Sum_f32", 4000, 2000, True),  # overlaps
+        # the preprocess pair's, Adam's and the loss's kernels, inside it
+        _Event("preprocess_fwd_kernel(float const*)", 4000, 200, True),
+        _Event("adam_update_kernel(float*)", 4200, 300, True),
+        _Event("photometric_fwd_kernel(float const*)", 5000, 400, True),
         _Event("void at::native::vectorized_elementwise_kernel<4, add>", 20000, 1000, True),
         _Event("cudaStreamSynchronize", 5500, 14000, False),
     ]
@@ -41,9 +45,10 @@ def _trace(steps=2):
 def test_trace_reduction_by_hand():
     tr = _trace()
     assert tr.busy_s == pytest.approx(7000e-9)  # [0, 6000) and [20000, 21000)
-    assert tr.per_step_ms(lambda k: trace.kernel_class(k) == "torch") == pytest.approx(0.5e-3)
+    assert tr.per_step_ms(lambda k: trace.kernel_class(k) == "torch") == pytest.approx(0.95e-3)
     assert tr.per_step_ms(lambda k: trace.kernel_class(k) == "sort") == pytest.approx(0.25e-3)
-    assert tr.launches_per_step() == 3
+    assert tr.per_step_ms(lambda k: trace.kernel_class(k) == "nccl") == pytest.approx(1e-3)
+    assert tr.launches_per_step() == 4.5
     assert tr.top_ops(2)[0][0] == "K3 composite_bwd"
     assert tr.idle_gaps == [["cudaStreamSynchronize", pytest.approx(14000e-9)]]
 
@@ -51,7 +56,8 @@ def test_trace_reduction_by_hand():
 def _res(checks, trace_=None):
     return {"steps": 100, "wall_s": 2.0, "setup_s": 9.5, "pixels_per_step": 1000,
             "memory_peak_bytes": 123, "attempted": 100, "failed": 0, "checks": checks,
-            "trace": trace_, "work": {"kept": 1e9, "visible": 1e6, "views": 2}}
+            "trace": trace_, "work": {"kept": 1e9, "visible": 1e6, "views": 2,
+                                      "rank0": {"kept": 1e9, "visible": 1e6, "pixels": 2000}}}
 
 
 def test_line_untraced_schema_and_rate():
@@ -66,6 +72,15 @@ def test_line_untraced_schema_and_rate():
                               "memory_peak_bytes": 123}
     assert set(line["checks"]) == set(limits)
     json.dumps(line)
+
+
+def test_a_mesh_lines_busy_time_is_the_ranks_mean_in_both_places():
+    spec = tiny_spec("train-1080p-1m-mesh2x2")
+    res = dict(_res({k: 0.0 for k in spec["limits"]}, _trace()), busy_s=6000e-9)
+    line = run.result_line(spec, res, True, "card", 4)
+    assert line["device"]["busy_s"] == 6000e-9
+    assert line["device"]["window_s"] == pytest.approx(30e-6)
+    assert line["metrics"]["device_idle_pct.train"]["value"] == pytest.approx(80.0)
 
 
 def test_line_traced_schema_and_a_failed_check():
